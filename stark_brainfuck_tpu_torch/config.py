@@ -1,0 +1,107 @@
+"""Framework configuration.
+
+The same fields as the JAX package's `StarkConfig`, so a configuration
+carries across unchanged (`convert.config_from_fields`). This package runs
+the resident, single-device, native-codec prover; each option outside that
+path raises `NotImplementedError` naming the ROADMAP item that will bring it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class StarkConfig:
+    # FRI / soundness parameters
+    log_expansion_factor: int = 2
+    security_level: int = 2
+    num_randomizers: int = 1
+
+    # subgroup order from which all omicron/omega roots are derived
+    order: int = 1 << 32
+
+    # RNG: None -> os.urandom; an int seed gives a deterministic prover
+    seed: Optional[int] = None
+
+    # transcript codec: only "native" here
+    codec: str = "native"
+
+    # device mesh for sharded proving: only None (one device) here
+    mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None
+
+    # commitments (Merkle leaves + tree levels) are built on the device
+    # from this codeword length up; below it the hashlib host trees are used
+    device_commit_min: int = 4096
+
+    # FRI rounds whose codeword is shorter than this finish on the host
+    fri_host_min: int = 1 << 14
+
+    # FRI domains >= stream_min need the streamed prover (not ported yet)
+    stream_min: int = 1 << 22
+    stream_classes: int = 32
+
+    # stage checkpoints belong to the streamed prover (not ported yet)
+    checkpoint_dir: Optional[str] = None
+
+    # forward-LDE NTT: "auto" and "u64" run the u64 butterfly network;
+    # "mxu" (the int8-limb kernels) is not ported yet
+    ntt_backend: str = "auto"
+    mxu_ntt_min: int = 1 << 14
+
+    # opt-in quotient degree checks (the JAX package's DEBUG mode); not
+    # ported yet, so the default ignores the DEBUG environment variable
+    debug_degree_checks: bool = False
+
+    @property
+    def expansion_factor(self) -> int:
+        return 1 << self.log_expansion_factor
+
+    @property
+    def num_colinearity_checks(self) -> int:
+        return self.security_level // self.log_expansion_factor
+
+    def validate(self):
+        assert self.expansion_factor >= 4, "expansion factor must be >= 4"
+        assert (
+            self.num_colinearity_checks * self.log_expansion_factor
+            >= self.security_level
+        ), "colinearity checks x log expansion must cover security level"
+        if self.mesh_shape:
+            raise NotImplementedError(
+                "mesh_shape: the sharded prover is ROADMAP Queue A item 8"
+            )
+        if self.codec == "ref":
+            raise NotImplementedError(
+                "codec='ref': the reference-pickle codec is ROADMAP Queue A "
+                "item 9"
+            )
+        if self.codec != "native":
+            raise ValueError(f"unknown codec {self.codec!r}")
+        if self.ntt_backend == "mxu":
+            raise NotImplementedError(
+                "ntt_backend='mxu': kernels B2/B3 are ROADMAP Queue B"
+            )
+        if self.ntt_backend not in ("auto", "u64"):
+            raise ValueError(f"unknown ntt_backend {self.ntt_backend!r}")
+        if self.checkpoint_dir:
+            raise NotImplementedError(
+                "checkpoint_dir: stage checkpoints belong to the streamed "
+                "prover, ROADMAP Queue A item 7"
+            )
+        if self.debug_degree_checks:
+            raise NotImplementedError(
+                "debug_degree_checks: ROADMAP Queue A item 10"
+            )
+        return self
+
+    def check_domain(self, fri_domain_length: int):
+        """The resident prover holds whole codewords; larger domains need
+        the streamed prover."""
+        if fri_domain_length >= self.stream_min:
+            raise NotImplementedError(
+                f"FRI domain {fri_domain_length} >= stream_min "
+                f"{self.stream_min}: the streamed prover is ROADMAP Queue A "
+                "item 7"
+            )

@@ -1,0 +1,1 @@
+"""models layer of the torch port (see the package docstring)."""

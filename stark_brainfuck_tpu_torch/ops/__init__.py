@@ -1,0 +1,1 @@
+"""ops layer of the torch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""protocol layer of the torch port (see the package docstring)."""

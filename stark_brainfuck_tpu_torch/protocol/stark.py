@@ -1,0 +1,962 @@
+"""BrainfuckStark: the two-stage RAP prover/verifier orchestration, on torch.
+
+Protocol flow and transcript order match ref `brainfuck_stark.py:20-579`
+(base commit → challenges → extend → ext commit → quotients → terminals →
+weights → combination commit → indices → openings → FRI), and a seeded
+proof is byte-identical to the JAX package's. This is the resident,
+single-device, native-codec prover:
+
+  - all codeword-scale math (LDE NTTs, extension scans, constraint
+    evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
+    as int64 tensor programs on `device` (CUDA unless the caller asks for
+    the CPU);
+  - from `device_commit_min` up, every commitment is a device Merkle tree
+    hashed by kernel B1; below it the trees are built on the host;
+  - the verifier recomputes the quotients with the same constraint
+    builders over CPU tensors (one lane per query index);
+  - hashing of transcript objects stays on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import StarkConfig
+from ..convert import tensor_to_u64, u64_to_tensor
+from ..models.instruction import InstructionTable
+from ..models.interp import ArrayAlgebra
+from ..models.io import InputTable, OutputTable
+from ..models.memory import MemoryTable
+from ..models.processor import ProcessorTable
+from ..models.table import roundup_npo2
+from ..ops import blake2b as B
+from ..ops import field as f
+from ..ops import ntt as nt
+from ..ops import scan as sc
+from ..ops import xfield as xf
+from ..utils.metrics import StageTimer
+from ..utils.rng import Rng
+from .arguments import (
+    PermutationArgument,
+    evaluation_terminal,
+    program_evaluation_terminal,
+)
+from .channel import (
+    ProofStream,
+    make_codec,
+    reject,
+    sample_indices_stark,
+    sample_weights,
+)
+from .device_merkle import (
+    DeviceMerkle,
+    DeviceSaltedMerkle,
+    build_levels,
+    default_cut,
+    prefetch_trees,
+    prf_field_words,
+    salt_key_words,
+    salt_words_device,
+    salt_words_to_buffer,
+)
+from .fri import Fri
+from .merkle import Merkle, SaltBuffer, SaltedMerkle
+
+U64 = np.uint64
+
+
+def resolve_device(device=None) -> torch.device:
+    """The prover's device: CUDA unless the caller names another. Without a
+    CUDA device the default raises; it never falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to prove on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _tree_sum(x):
+    """Modular sum over axis 0 via log-depth halving."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        rest = x[2 * half :]
+        x = f.add(x[:half], x[half : 2 * half])
+        if rest.shape[0]:
+            x = torch.cat([x, rest], dim=0)
+    return x[0]
+
+
+class BrainfuckStark:
+    def __init__(
+        self,
+        running_time: int,
+        memory_length: int,
+        program: List[int],
+        input_symbols: str,
+        output_symbols: str,
+        config: Optional[StarkConfig] = None,
+        device=None,
+    ):
+        self.config = (config or StarkConfig()).validate()
+        self.device = resolve_device(device)
+        cfg = self.config
+        self.running_time = running_time
+        self.memory_length = memory_length
+        self.program = list(program)
+        self.input_symbols = input_symbols
+        self.output_symbols = output_symbols
+
+        nr = cfg.num_randomizers
+        self.processor_table = ProcessorTable(running_time, nr)
+        self.instruction_table = InstructionTable(running_time + len(program), nr)
+        self.memory_table = MemoryTable(memory_length, nr)
+        self.input_table = InputTable(len(input_symbols))
+        self.output_table = OutputTable(len(output_symbols))
+        self.tables = [
+            self.processor_table,
+            self.instruction_table,
+            self.memory_table,
+            self.input_table,
+            self.output_table,
+        ]
+
+        # permutation arguments: (table, column) pairs into the extended
+        # column layout (ref brainfuck_stark.py:67-72)
+        self.permutation_arguments = [
+            PermutationArgument(self.tables, (0, 7), (1, 3)),
+            PermutationArgument(self.tables, (0, 8), (2, 4)),
+        ]
+
+        # max symbolic quotient degree over all ext transition constraints
+        # with all-one challenges (ref brainfuck_stark.py:85-97)
+        ones = [xf.H_ONE] * 11
+        self.max_degree = 1
+        for table in self.tables:
+            bounds = [table.interpolant_degree()] * (2 * table.full_width)
+            for air in table.symbolic_transition_constraints(ones):
+                degree = air.symbolic_degree_bound(bounds) - (table.height - 1)
+                self.max_degree = max(self.max_degree, degree)
+        self.max_degree = roundup_npo2(self.max_degree) - 1
+        fri_domain_length = (self.max_degree + 1) * cfg.expansion_factor
+        cfg.check_domain(fri_domain_length)
+
+        self.codec = make_codec(cfg.codec)
+        self.fri = Fri(
+            f.GENERATOR,
+            f.primitive_nth_root(fri_domain_length),
+            fri_domain_length,
+            cfg.expansion_factor,
+            cfg.num_colinearity_checks,
+            codec=self.codec,
+            device_commit_min=cfg.device_commit_min,
+            host_min=cfg.fri_host_min,
+        )
+
+    # ------------------------------------------------------------------
+
+    def _terminals_list(self) -> List[tuple]:
+        return [
+            self.processor_table.terminals["instruction_permutation"],
+            self.processor_table.terminals["memory_permutation"],
+            self.processor_table.terminals["input_evaluation"],
+            self.processor_table.terminals["output_evaluation"],
+            self.instruction_table.terminals["evaluation"],
+        ]
+
+    def _base_degree_bounds(self) -> List[int]:
+        out = []
+        for t in self.tables:
+            out += [t.interpolant_degree()] * t.base_width
+        return out
+
+    def _ext_degree_bounds(self) -> List[int]:
+        out = []
+        for t in self.tables:
+            out += [t.interpolant_degree()] * t.num_ext_columns
+        return out
+
+    def _zerofier_inverses(self) -> Dict[int, Dict[str, object]]:
+        """Per-table-height zerofier-inverse tensors over the FRI domain:
+        boundary 1/(x - 1); transition (x - o^{-1})/(x^H - 1) (all-zero when
+        H == 0, as ref table.py:196-199); terminal 1/(x - o^{-1}). Cached
+        on the instance — they depend only on heights and the domain."""
+        cache = getattr(self, "_zinv_cache", None)
+        if cache is not None:
+            return cache
+        dev = self.device
+        N = self.fri.domain.length
+        omega = self.fri.domain.omega
+        offset = self.fri.domain.offset
+        heights = []
+        for t in self.tables:
+            if t.height not in heights:
+                heights.append(t.height)
+        omicrons = {t.height: t.omicron for t in self.tables if t.height > 0}
+
+        def scalar(v):
+            return u64_to_tensor([v], dev)
+
+        one = f.const(1, torch.empty(0, device=dev))
+        domain = f.geometric_rows(scalar(offset), scalar(omega), N)[0]
+        boundary = f.batch_inverse(f.sub(domain, one))
+        out = {}
+        for h in heights:
+            o_inv = f.h_inverse(omicrons[h]) if h > 0 else 1
+            x_minus_oinv = f.sub(domain, scalar(o_inv))
+            terminal = f.batch_inverse(x_minus_oinv)
+            if h > 0:
+                # x^H over the coset has period N/H: invert a small table
+                period = N // h
+                xs = f.geometric_rows(
+                    scalar(f.h_pow(offset, h)), scalar(f.h_pow(omega, h)),
+                    period,
+                )[0]
+                sub_inv_small = f.batch_inverse(f.sub(xs, one))
+                transition = f.mul(
+                    sub_inv_small.repeat(N // period), x_minus_oinv
+                )
+            else:
+                transition = torch.zeros((N,), dtype=torch.int64, device=dev)
+            out[h] = {
+                "boundary": boundary,
+                "transition": transition,
+                "terminal": terminal,
+            }
+        self._zinv_cache = out
+        return out
+
+    def _lde_packs(self):
+        """NTT twiddle and coset scale tables on the device, cached."""
+        cache = getattr(self, "_packs_cache", None)
+        if cache is not None:
+            return cache
+        dev = self.device
+        fri = self.fri
+        N = fri.domain.length
+        packs = {
+            "fwd": nt.make_pack(N, fri.domain.omega, False, dev),
+            "rand_scale": nt.scale_table(
+                fri.domain.offset, self.max_degree + 1, dev
+            ),
+            "tables": tuple(
+                (
+                    nt.make_pack(t.height, t.omicron, True, dev),
+                    nt.scale_table(
+                        fri.domain.offset, t.height + t.num_randomizers, dev
+                    ),
+                )
+                if t.height > 0
+                else None
+                for t in self.tables
+            ),
+        }
+        self._packs_cache = packs
+        return packs
+
+    # -- prover stages -------------------------------------------------------
+
+    def _stage_base_lde(self, mats, rand_coeffs, base_rands, packs):
+        """Randomizer codeword + per-table base codewords. All coefficient
+        rows (randomizer limbs + every table's base columns) go through ONE
+        shared forward NTT of the FRI domain size."""
+        N = self.fri.domain.length
+        dev = self.device
+        rand_coeffs = rand_coeffs.reshape(-1, 3)
+        rows = [
+            nt._pad_to(
+                f.mul(rand_coeffs.movedim(-1, 0),
+                      packs["rand_scale"][: rand_coeffs.shape[0]]),
+                N,
+            )
+        ]
+        for i, (t, m, r) in enumerate(zip(self.tables, mats, base_rands)):
+            if t.height == 0:
+                rows.append(
+                    torch.zeros((t.base_width, N), dtype=torch.int64, device=dev)
+                )
+            else:
+                tp = packs["tables"][i]
+                rows.append(nt.lde_coefficients(m.T, r, tp[0], tp[1], N))
+        all_cws = nt.ntt_with(torch.cat(rows, dim=0), packs["fwd"])
+        rand_cw = all_cws[:3].movedim(0, -1)  # (N, 3)
+        base_cws = []
+        pos = 3
+        for t in self.tables:
+            base_cws.append(all_cws[pos : pos + t.base_width])
+            pos += t.base_width
+        return rand_cw, tuple(base_cws)
+
+    def _device_extend(self, mats, challenges_arr, initials_arr):
+        """All tables' extension columns as ONE batched affine scan.
+        Returns (cols tuple, terms tuple), on the device."""
+        all_lanes = []
+        lane_slices = []
+        for t, m in zip(self.tables, mats):
+            lanes = t.extend_lanes(m, challenges_arr, initials_arr)
+            lane_slices.append((len(all_lanes), len(all_lanes) + len(lanes)))
+            all_lanes += lanes
+        all_outs = sc.batched_affine_scan(all_lanes)
+        cols, terms = [], []
+        for (lo, hi), t, m in zip(lane_slices, self.tables, mats):
+            c, tm = t.extend_finish(
+                m, challenges_arr, initials_arr, all_outs[lo:hi]
+            )
+            cols.append(c)
+            terms.append(tm)
+        return tuple(cols), tuple(terms)
+
+    def _stage_ext_lde(self, xcols, ext_rands, packs):
+        """Extension LDE over the extension columns; all tables share one
+        batched forward NTT like the base stage."""
+        N = self.fri.domain.length
+        dev = self.device
+        rows = []
+        layout = []  # (table_index, n_ext) in order
+        for i, (t, cols, r) in enumerate(zip(self.tables, xcols, ext_rands)):
+            if t.height == 0:
+                layout.append((i, 0))
+                continue
+            tp = packs["tables"][i]
+            # (H, n_ext, 3) -> (3*n_ext, H) coefficient rows
+            trace = cols.movedim(0, -1)  # (n_ext, 3, H)
+            trace = trace.reshape((-1, trace.shape[-1]))
+            rr = None
+            if r is not None:
+                # (n_ext, R, 3) -> (n_ext*3, R), limb-major per column
+                rr = r.movedim(-1, 1).reshape((-1, r.shape[1]))
+            rows.append(nt.lde_coefficients(trace, rr, tp[0], tp[1], N))
+            layout.append((i, t.num_ext_columns))
+        all_cws = nt.ntt_with(torch.cat(rows, dim=0), packs["fwd"])
+        ext_cws = []
+        pos = 0
+        for i, n_ext in layout:
+            t = self.tables[i]
+            if t.height == 0 or n_ext == 0:
+                ext_cws.append(
+                    torch.zeros((t.num_ext_columns, N, 3), dtype=torch.int64,
+                                device=dev)
+                )
+                continue
+            block = all_cws[pos : pos + 3 * n_ext].reshape((n_ext, 3, N))
+            ext_cws.append(block.movedim(1, -1))
+            pos += 3 * n_ext
+        return tuple(ext_cws)
+
+    def _acc_group(self, acc, stack, w_pairs_g, ratios_g, opow_g,
+                   chunk: int = 16):
+        """acc += Σ_t (w_plain_t + w_shift_t·x^s_t)·stack[t], chunked.
+        stack: (T, N) base or (T, N, 3) extension terms. The x^s rows are
+        geometric progressions offset^s·(omega^s)^i."""
+        N = self.fri.domain.length
+        base_stream = stack.dim() == 2
+        for start in range(0, stack.shape[0], chunk):
+            stop = min(start + chunk, stack.shape[0])
+            xs = f.geometric_rows(opow_g[start:stop], ratios_g[start:stop], N)
+            w_plain = w_pairs_g[start:stop, 0]
+            w_shift = w_pairs_g[start:stop, 1]
+            c = xf.mul_base(w_shift[:, None, :].expand(stop - start, N, 3), xs)
+            c = f.add(c, w_plain[:, None, :])
+            if base_stream:
+                contrib = xf.mul_base(c, stack[start:stop])
+            else:
+                contrib = xf.mul(c, stack[start:stop])
+            acc = xf.add(acc, _tree_sum(contrib))
+        return acc
+
+    def _table_quotient_stack(self, ti, base_cw, ext_cw, challenges,
+                              terminals, zinv):
+        """All quotient codewords of table ti as one (T, N, 3) stack."""
+        t = self.tables[ti]
+        alg = ArrayAlgebra(self.device)
+        ch_vals = [alg.x(challenges[i]) for i in range(11)]
+        tm_vals = [alg.x(terminals[i]) for i in range(5)]
+        ud = t.unit_distance(self.fri.domain.length)
+
+        def rot(arr):
+            return torch.roll(arr, -ud, 0) if ud else arr
+
+        point = [alg.base(base_cw[j]) for j in range(t.base_width)]
+        point += [alg.x(ext_cw[j]) for j in range(t.num_ext_columns)]
+        point_next = [alg.base(rot(base_cw[j])) for j in range(t.base_width)]
+        point_next += [alg.x(rot(ext_cw[j])) for j in range(t.num_ext_columns)]
+        q = t.quotients(alg, point, point_next, ch_vals, tm_vals, zinv)
+        return torch.stack(q, dim=0)
+
+    def _combination_pipeline(self, rand_cw, base_cws, ext_cws,
+                              challenges_arr, terminals_arr, weights_h,
+                              shifts, offset_pows):
+        """Quotients + the weighted nonlinear combination, on the device.
+        The quotient codewords never leave it: only the combination is
+        committed, and the verifier recomputes quotients from openings."""
+        dev = self.device
+        N = self.fri.domain.length
+        ratios = u64_to_tensor(
+            [f.h_pow(self.fri.domain.omega, int(s)) for s in shifts], dev
+        )
+        opows = u64_to_tensor(offset_pows, dev)
+        w0 = u64_to_tensor(weights_h[0], dev)
+        w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
+        zinv = self._zerofier_inverses()
+
+        def acc_group(acc, stack, start):
+            count = stack.shape[0]
+            sl = slice(start, start + count)
+            return (
+                self._acc_group(acc, stack, w_pairs[sl], ratios[sl], opows[sl]),
+                start + count,
+            )
+
+        acc = xf.mul(w0[None, :].expand(N, 3), rand_cw)
+        acc, pos = acc_group(acc, torch.cat(list(base_cws), dim=0), 0)
+        acc, pos = acc_group(acc, torch.cat(list(ext_cws), dim=0), pos)
+        for ti, t in enumerate(self.tables):
+            stack = self._table_quotient_stack(
+                ti, base_cws[ti], ext_cws[ti], challenges_arr, terminals_arr,
+                zinv[t.height],
+            )
+            acc, pos = acc_group(acc, stack, pos)
+            del stack
+
+        # permutation-argument difference quotients
+        boundary = zinv[self.tables[0].height]["boundary"]
+        pa_stack = torch.stack(
+            [
+                xf.mul_base(xf.sub(ext_cws[0][0], ext_cws[1][0]), boundary),
+                xf.mul_base(xf.sub(ext_cws[0][1], ext_cws[2][0]), boundary),
+            ],
+            dim=0,
+        )
+        acc, pos = acc_group(acc, pa_stack, pos)
+        assert pos == len(shifts), "term/shift bookkeeping mismatch"
+        return acc
+
+    # ------------------------------------------------------------------
+    # prover
+    # ------------------------------------------------------------------
+
+    def prove(
+        self,
+        processor_matrix: np.ndarray,
+        memory_matrix: np.ndarray,
+        instruction_matrix: np.ndarray,
+        input_matrix: np.ndarray,
+        output_matrix: np.ndarray,
+        proof_stream: Optional[ProofStream] = None,
+    ) -> bytes:
+        cfg = self.config
+        dev = self.device
+        rng = Rng(cfg.seed)
+        fri = self.fri
+        N = fri.domain.length
+        timer = StageTimer(dev)
+        _mark = timer.mark
+        launches0 = B.LAUNCHES
+
+        # 1. populate and pad (ref brainfuck_stark.py:139-150)
+        assert len(processor_matrix) + len(self.program) == len(instruction_matrix)
+        matrices = [
+            processor_matrix, instruction_matrix, memory_matrix,
+            input_matrix, output_matrix,
+        ]
+        for t, m in zip(self.tables, matrices):
+            t.matrix = np.asarray(m, dtype=U64).reshape(-1, t.base_width)
+            if len(t.matrix) > 0:
+                t.pad()
+
+        if proof_stream is None:
+            proof_stream = self.codec.make_stream()
+        mats = tuple(u64_to_tensor(t.matrix, dev) for t in self.tables)
+
+        # 2-3. randomizer polynomial (BLAKE2b counter PRF, drawn where it is
+        # consumed) + base LDE (ref :164-176)
+        rand_count = (self.max_degree + 1) * 3
+        randomizer_coeffs = prf_field_words(
+            salt_key_words(rng.bytes(16), dev), rand_count
+        )
+        base_rands = tuple(
+            u64_to_tensor(
+                rng.base_elements((t.base_width, t.num_randomizers)), dev
+            )
+            if t.num_randomizers > 0 and t.height > 0
+            else None
+            for t in self.tables
+        )
+        packs = self._lde_packs()
+        device_commit = N >= cfg.device_commit_min
+        randomizer_codeword, base_codewords = self._stage_base_lde(
+            mats, randomizer_coeffs, base_rands, packs
+        )
+        _mark("stage_a (base LDE)")
+
+        # 4. salted commitment to the zipped base codewords (ref :178-180)
+        base_key = salt_key_words(rng.bytes(16), dev)
+        num_base_cols = sum(t.base_width for t in self.tables)
+        base_widths = [3] + [1] * num_base_cols
+        zipped_base = torch.cat(
+            [randomizer_codeword] + [cw.T for cw in base_codewords], dim=1
+        )  # (N, 3 + num_base_columns)
+        base_tree, base_row = self._salted_commit(zipped_base, base_key)
+        _mark("base merkle (device)" if device_commit else "base merkle")
+        base_leaf_cache: Dict[int, tuple] = {}
+
+        def base_leaf_obj(idx):
+            if idx not in base_leaf_cache:
+                base_leaf_cache[idx] = _row_to_leaf_object(
+                    base_row(idx), base_widths
+                )
+            return base_leaf_cache[idx]
+
+        proof_stream.push(base_tree.root())
+
+        # 5. challenges (ref :183-184)
+        challenges_h = sample_weights(11, proof_stream.prover_fiat_shamir())
+
+        # 6. secret initials for the two permutation arguments (ref :186-187)
+        initials_h = [rng.x_element(chunk=8) for _ in range(2)]
+
+        # 7. extend tables: one batched scan on the device (ref :189-190)
+        ext_rands = tuple(
+            u64_to_tensor(
+                rng.x_elements((t.num_ext_columns, t.num_randomizers)), dev
+            )
+            if t.num_randomizers > 0 and t.height > 0
+            else None
+            for t in self.tables
+        )
+        challenges_arr = u64_to_tensor(challenges_h, dev)
+        initials_arr = u64_to_tensor(initials_h, dev)
+        xcols, terms_dev = self._device_extend(mats, challenges_arr, initials_arr)
+        for t, terms in zip(self.tables, terms_dev):
+            terms = tensor_to_u64(terms)
+            t.terminals = {
+                n: tuple(int(v) for v in terms[j])
+                for j, n in enumerate(t.terminal_names)
+            }
+        _mark("extend (device scan)")
+        terminals_h = self._terminals_list()
+
+        # 8. extension LDE (ref :194-199)
+        ext_codewords = self._stage_ext_lde(xcols, ext_rands, packs)
+        del xcols
+        _mark("stage_b (ext LDE)")
+
+        ext_key = salt_key_words(rng.bytes(16), dev)
+        num_ext_cols = sum(t.num_ext_columns for t in self.tables)
+        ext_widths = [3] * num_ext_cols
+        zipped_ext = torch.cat(
+            [cw.movedim(0, 1).reshape(N, -1) for cw in ext_codewords], dim=1
+        )  # (N, 3 * num_ext_columns)
+        ext_tree, ext_row = self._salted_commit(zipped_ext, ext_key)
+        _mark("ext merkle (device)" if device_commit else "ext merkle")
+        ext_leaf_cache: Dict[int, tuple] = {}
+
+        def ext_leaf_obj(idx):
+            if idx not in ext_leaf_cache:
+                ext_leaf_cache[idx] = _row_to_leaf_object(
+                    ext_row(idx), ext_widths
+                )
+            return ext_leaf_cache[idx]
+
+        proof_stream.push(ext_tree.root())
+
+        # 9. quotient degree bounds (host, symbolic; ref :210-218)
+        quotient_degree_bounds = []
+        for t in self.tables:
+            quotient_degree_bounds += t.all_quotient_degree_bounds(
+                challenges_h, terminals_h
+            )
+        for pa in self.permutation_arguments:
+            quotient_degree_bounds.append(pa.quotient_degree_bound())
+
+        # 10. terminals into the transcript (ref :220-221)
+        for t_ in terminals_h:
+            proof_stream.push(t_)
+
+        # 11. weights (ref :226-238)
+        num_base = sum(t.base_width for t in self.tables)
+        num_ext = sum(t.num_ext_columns for t in self.tables)
+        num_quot = len(quotient_degree_bounds)
+        weights_h = sample_weights(
+            1 + 2 * (num_base + num_ext + num_quot),
+            proof_stream.prover_fiat_shamir(),
+        )
+
+        # 12. quotients + nonlinear combination (ref :204-218, :240-298)
+        all_shift_bounds = (
+            self._base_degree_bounds() + self._ext_degree_bounds()
+            + quotient_degree_bounds
+        )
+        shifts = [self.max_degree - b for b in all_shift_bounds]
+        offset_pows = [f.h_pow(fri.domain.offset, s) for s in shifts]
+        terminals_arr = u64_to_tensor(terminals_h, dev)
+        combination = self._combination_pipeline(
+            randomizer_codeword, base_codewords, ext_codewords,
+            challenges_arr, terminals_arr, weights_h, shifts, offset_pows,
+        )
+        _mark("stage_c (quotients+combination)")
+
+        # 13. commit to the combination codeword (ref :301-302)
+        if device_commit:
+            comb_cut = default_cut(N)
+            combination_tree = DeviceMerkle(
+                combination, levels=build_levels(combination, None, comb_cut),
+                cut=comb_cut,
+            )
+            comb_row = combination_tree.row_at
+            _mark("combination merkle (device)")
+        else:
+            combination = combination.cpu()
+            comb_host = tensor_to_u64(combination)
+            combination_tree = Merkle.from_buffer(
+                comb_host.astype("<u8").tobytes(), 24, N
+            )
+            comb_row = lambda idx: comb_host[idx]  # noqa: E731
+            _mark("combination merkle")
+        comb_leaf_cache: Dict[int, tuple] = {}
+
+        def comb_leaf_obj(idx):
+            if idx not in comb_leaf_cache:
+                comb_leaf_cache[idx] = tuple(int(v) for v in comb_row(idx))
+            return comb_leaf_cache[idx]
+
+        proof_stream.push(combination_tree.root())
+
+        # 14. query indices (ref :305-307)
+        indices = sample_indices_stark(
+            cfg.security_level, proof_stream.prover_fiat_shamir(), N
+        )
+        unit_distances = list(set([t.unit_distance(N) for t in self.tables]))
+
+        # 15. open zipped base/ext leaves (ref :313-326); device trees
+        # gather all rows/salts/path siblings in one transfer
+        if device_commit:
+            open_idx = sorted(
+                {
+                    (index + d) % N
+                    for index in indices
+                    for d in [0] + unit_distances
+                }
+            )
+            prefetch_trees(
+                [(base_tree, open_idx), (ext_tree, open_idx),
+                 (combination_tree, indices)]
+            )
+        for index in indices:
+            for distance in [0] + unit_distances:
+                idx = (index + distance) % N
+                salt, path = base_tree.open(idx)
+                proof_stream.push(base_leaf_obj(idx))
+                proof_stream.push((salt, path))
+
+                proof_stream.push(ext_leaf_obj(idx))
+                proof_stream.push(ext_tree.open(idx))
+
+        # 16. open combination codeword (ref :329-333)
+        for index in indices:
+            proof_stream.push(comb_leaf_obj(index))
+            proof_stream.push(combination_tree.open(index))
+
+        # 17. FRI (ref :336)
+        self.fri.prove(
+            combination, proof_stream, on_device=device_commit,
+            tree0=combination_tree,
+        )
+        _mark("fri.prove")
+
+        proof = proof_stream.serialize()
+        _mark("serialize")
+        T = self.tables[0].height
+        hash_leaves = 3 * N + sum(
+            N >> r for r in range(1, self.fri.num_rounds())
+        )
+        self.last_metrics = timer.report(
+            fri_domain=N,
+            trace_height=T,
+            cycles_per_s=round(T / timer.total(), 2),
+            proof_bytes=len(proof),
+            hash_leaves=hash_leaves,
+            fri_round_s=self.fri.last_round_s,
+            device=str(dev),
+            ntt_path="u64-torch",
+            hash_path=(
+                "host-hashlib" if not device_commit
+                else "cuda-blake2b" if dev.type == "cuda"
+                else "torch-plain"
+            ),
+            blake2b_launches=B.LAUNCHES - launches0,
+        )
+        return proof
+
+    def _salted_commit(self, zipped, key):
+        """Salted Merkle commitment to the rows of `zipped` (N, k): a device
+        tree from `device_commit_min` up, else a host hashlib tree. Returns
+        (tree, row accessor)."""
+        N = int(zipped.shape[0])
+        salts = salt_words_device(key, N)
+        if N >= self.config.device_commit_min:
+            cut = default_cut(N)
+            tree = DeviceSaltedMerkle(
+                zipped, salts, levels=build_levels(zipped, salts, cut), cut=cut
+            )
+            return tree, tree.row_at
+        rows = tensor_to_u64(zipped)
+        salt_buf = SaltBuffer(salt_words_to_buffer(salts))
+        buf, plen = _salted_payload_buffer(rows, salt_buf.buf)
+        tree = SaltedMerkle.from_buffer(buf, plen, N, salt_buf)
+        return tree, (lambda idx: rows[idx])
+
+    # ------------------------------------------------------------------
+    # verifier
+    # ------------------------------------------------------------------
+
+    def verify(self, proof: bytes) -> bool:
+        """Verify a proof (from either package); the arithmetic runs on CPU
+        tensors, one lane per query index."""
+        self.last_rejection = None
+        cfg = self.config
+        fri = self.fri
+        N = fri.domain.length
+        proof_stream = self.codec.load_stream(proof)
+
+        base_root = proof_stream.pull()
+        challenges_h = sample_weights(11, proof_stream.verifier_fiat_shamir())
+        ext_root = proof_stream.pull()
+
+        terminals_h = [tuple(proof_stream.pull()) for _ in range(5)]
+
+        base_degree_bounds = self._base_degree_bounds()
+        ext_degree_bounds = self._ext_degree_bounds()
+
+        num_base = sum(t.base_width for t in self.tables)
+        num_ext = sum(t.num_ext_columns for t in self.tables)
+        num_quot = sum(
+            t.num_quotients(challenges_h, terminals_h) for t in self.tables
+        )
+        num_diff = len(self.permutation_arguments)
+
+        weights_h = sample_weights(
+            1 + 2 * num_base + 2 * num_ext + 2 * num_quot + 2 * num_diff,
+            proof_stream.verifier_fiat_shamir(),
+        )
+
+        combination_root = proof_stream.pull()
+
+        indices = sample_indices_stark(
+            cfg.security_level, proof_stream.verifier_fiat_shamir(), N
+        )
+        unit_distances = list(set([t.unit_distance(N) for t in self.tables]))
+
+        # -- pull & check salted openings (ref :421-440) --------------------
+        tuples: Dict[int, list] = {}
+        for index in indices:
+            for distance in [0] + unit_distances:
+                idx = (index + distance) % N
+                element = proof_stream.pull()
+                salt, path = proof_stream.pull()
+                if not SaltedMerkle.verify(
+                    base_root, idx, path,
+                    self.codec.salted_payload(element, salt),
+                ):
+                    return reject(
+                        self,
+                        f"base codeword opening at index {idx} fails its "
+                        f"salted-Merkle path",
+                    )
+                row = [tuple(element[0])] + [int(e) for e in element[1:]]
+                tuples[idx] = row
+
+                element = proof_stream.pull()
+                salt, path = proof_stream.pull()
+                if not SaltedMerkle.verify(
+                    ext_root, idx, path,
+                    self.codec.salted_payload(element, salt),
+                ):
+                    return reject(
+                        self,
+                        f"extension codeword opening at index {idx} fails "
+                        f"its salted-Merkle path",
+                    )
+                tuples[idx] = tuples[idx] + [tuple(e) for e in element]
+
+        # -- recompute the combination, vectorised over all indices ---------
+        K = len(indices)
+        alg = ArrayAlgebra("cpu")
+        ch_vals = [alg.x(u64_to_tensor(c)) for c in challenges_h]
+        tm_vals = [alg.x(u64_to_tensor(t_)) for t_ in terminals_h]
+        xs = u64_to_tensor([fri.domain(i) for i in indices])  # (K,)
+        one = u64_to_tensor([1])
+        ext_offset = 1 + num_base
+
+        def col_base(col, idx_list):
+            return u64_to_tensor([tuples[i][1 + col] for i in idx_list])
+
+        def col_ext(col, idx_list):
+            return u64_to_tensor([tuples[i][ext_offset + col] for i in idx_list])
+
+        widx = 0
+        inner = torch.zeros((K, 3), dtype=torch.int64)
+
+        def add_term(arr):
+            """arr: (K,) base or (K, 3) extension."""
+            nonlocal widx, inner
+            wb = u64_to_tensor(weights_h[widx])[None, :].expand(K, 3)
+            widx += 1
+            if arr.dim() == 1:
+                inner = xf.add(inner, xf.mul_base(wb, arr))
+            else:
+                inner = xf.add(inner, xf.mul(wb, arr))
+
+        def shifted(arr, bound):
+            ps = f.pow_const(xs, self.max_degree - bound)
+            if arr.dim() == 1:
+                return f.mul(arr, ps)
+            return xf.mul_base(arr, ps)
+
+        add_term(u64_to_tensor([tuples[i][0] for i in indices]))
+        for i in range(num_base):
+            v = col_base(i, indices)
+            add_term(v)
+            add_term(shifted(v, base_degree_bounds[i]))
+        for i in range(num_ext):
+            v = col_ext(i, indices)
+            add_term(v)
+            add_term(shifted(v, ext_degree_bounds[i]))
+
+        inv_xm1 = f.inverse(f.sub(xs, one))
+        acc_base = 0
+        acc_ext = 0
+        points = []
+        for t in self.tables:
+            ud = t.unit_distance(N)
+            nidx = [(i + ud) % N for i in indices]
+            point = [alg.base(col_base(acc_base + j, indices)) for j in range(t.base_width)]
+            point += [alg.x(col_ext(acc_ext + j, indices)) for j in range(t.num_ext_columns)]
+            point_next = [alg.base(col_base(acc_base + j, nidx)) for j in range(t.base_width)]
+            point_next += [alg.x(col_ext(acc_ext + j, nidx)) for j in range(t.num_ext_columns)]
+            points.append(point)
+            acc_base += t.base_width
+            acc_ext += t.num_ext_columns
+
+            o_inv = f.h_inverse(t.omicron) if t.height > 0 else 1
+            x_minus_oinv = f.sub(xs, u64_to_tensor([o_inv]))
+            if t.height > 0:
+                transition_zinv = f.mul(
+                    x_minus_oinv,
+                    f.inverse(f.sub(f.pow_const(xs, t.height), one)),
+                )
+            else:
+                transition_zinv = torch.zeros((K,), dtype=torch.int64)
+            zinv = {
+                "boundary": inv_xm1,
+                "transition": transition_zinv,
+                "terminal": f.inverse(x_minus_oinv),
+            }
+            quotients = t.quotients(
+                alg, point, point_next, ch_vals, tm_vals, zinv
+            )
+            bounds = t.all_quotient_degree_bounds(challenges_h, terminals_h)
+            for q, bound in zip(quotients, bounds):
+                add_term(q)
+                add_term(shifted(q, bound))
+
+        # permutation-argument difference quotients (ref :540-547)
+        col_in_point = {(0, 7): 7, (0, 8): 8, (1, 3): 3, (2, 4): 4}
+        for pa in self.permutation_arguments:
+            lhs = points[pa.lhs[0]][col_in_point[pa.lhs]].arr
+            rhs = points[pa.rhs[0]][col_in_point[pa.rhs]].arr
+            q = xf.mul_base(xf.sub(lhs, rhs), inv_xm1)
+            add_term(q)
+            add_term(shifted(q, pa.quotient_degree_bound()))
+
+        assert widx == len(weights_h), (
+            f"term count {widx} != weight count {len(weights_h)}"
+        )
+
+        inner_h = tensor_to_u64(inner)
+        for k, index in enumerate(indices):
+            combination_leaf = proof_stream.pull()
+            combination_path = proof_stream.pull()
+            if not Merkle.verify(
+                combination_root, index, combination_path,
+                self.codec.leaf_payload(combination_leaf),
+            ):
+                return reject(
+                    self,
+                    f"combination codeword opening at index {index} fails "
+                    f"its Merkle path",
+                )
+            if tuple(combination_leaf) != tuple(int(v) for v in inner_h[k]):
+                return reject(
+                    self,
+                    f"combination leaf at index {index} does not equal the "
+                    f"recomputed weighted sum of trace/quotient terms",
+                )
+
+        # -- FRI (ref :572) --------------------------------------------------
+        if not self.fri.verify(proof_stream, combination_root):
+            return reject(
+                self, f"FRI low-degree test failed: {self.fri.last_rejection}"
+            )
+
+        # -- evaluation arguments against public data (ref :575-577) --------
+        if terminals_h[2] != evaluation_terminal(
+            [ord(c) for c in self.input_symbols], challenges_h[8]
+        ):
+            return reject(
+                self,
+                "input evaluation terminal does not match the public input",
+            )
+        if terminals_h[3] != evaluation_terminal(
+            [ord(c) for c in self.output_symbols], challenges_h[9]
+        ):
+            return reject(
+                self,
+                "output evaluation terminal does not match the public output",
+            )
+        if terminals_h[4] != program_evaluation_terminal(
+            self.program,
+            challenges_h[0], challenges_h[1], challenges_h[2], challenges_h[10],
+        ):
+            return reject(
+                self,
+                "program evaluation terminal does not match the public "
+                "program",
+            )
+
+        return True
+
+
+# ---------------------------------------------------------------------------
+
+
+def _salted_payload_buffer(rows: np.ndarray, salt_buf: bytes):
+    """(N, k) u64 rows + packed salts -> one contiguous payload buffer of
+    per-leaf (8k + 24)-byte payloads (native-codec salted leaves)."""
+    n, k = rows.shape
+    row_u8 = np.ascontiguousarray(rows.astype("<u8")).view(np.uint8).reshape(
+        n, 8 * k
+    )
+    salts_u8 = np.frombuffer(salt_buf, dtype=np.uint8).reshape(n, 24)
+    return (
+        np.concatenate([row_u8, salts_u8], axis=1).tobytes(),
+        8 * k + 24,
+    )
+
+
+def _row_to_leaf_object(row: np.ndarray, widths: List[int]):
+    """Rebuild the tuple-structured leaf object ((c0,c1,c2) or int per
+    column) from a flat u64 row."""
+    out = []
+    pos = 0
+    for w in widths:
+        if w == 1:
+            out.append(int(row[pos]))
+        else:
+            out.append(tuple(int(v) for v in row[pos : pos + w]))
+        pos += w
+    return tuple(out)

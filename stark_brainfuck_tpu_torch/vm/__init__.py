@@ -1,0 +1,1 @@
+"""vm layer of the torch port (see the package docstring)."""

@@ -1,0 +1,126 @@
+"""Torch port AIR tables vs the JAX package's tables on a traced program:
+extension columns, terminals, quotients and degree bounds, exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from stark_brainfuck_tpu import VirtualMachine as JVM
+from stark_brainfuck_tpu.models import instruction as jins
+from stark_brainfuck_tpu.models import io as jio
+from stark_brainfuck_tpu.models import memory as jmem
+from stark_brainfuck_tpu.models import processor as jproc
+from stark_brainfuck_tpu.models.interp import ArrayAlgebra as JAlg
+from stark_brainfuck_tpu_torch import VirtualMachine as TVM
+from stark_brainfuck_tpu_torch.convert import tensor_to_u64 as U
+from stark_brainfuck_tpu_torch.convert import u64_to_tensor as T
+from stark_brainfuck_tpu_torch.models import instruction as tins
+from stark_brainfuck_tpu_torch.models import io as tio
+from stark_brainfuck_tpu_torch.models import memory as tmem
+from stark_brainfuck_tpu_torch.models import processor as tproc
+from stark_brainfuck_tpu_torch.models.interp import ArrayAlgebra as TAlg
+
+torch.set_num_threads(1)
+
+P = 0xFFFFFFFF00000001
+SRC, INP = ",[->+<]>.+.", "\x05"
+
+# (JAX class, port class, trace key, constructor length)
+TABLES = {
+    "processor": (jproc.ProcessorTable, tproc.ProcessorTable, "processor"),
+    "instruction": (jins.InstructionTable, tins.InstructionTable, "instruction"),
+    "memory": (jmem.MemoryTable, tmem.MemoryTable, "memory"),
+    "input": (jio.InputTable, tio.InputTable, "input"),
+    "output": (jio.OutputTable, tio.OutputTable, "output"),
+}
+
+
+@pytest.fixture(scope="module")
+def trace():
+    program = JVM.compile(SRC)
+    assert TVM.compile(SRC) == program
+    tr = JVM.simulate(program, INP, native=False)
+    tr_port = TVM.simulate(program, INP)
+    for k in ("processor", "memory", "instruction", "input", "output"):
+        assert np.array_equal(tr[k], tr_port[k]), k
+    return program, tr
+
+
+def _make(name, program, tr):
+    jcls, tcls, key = TABLES[name]
+    rows = tr[key].shape[0]
+    if name in ("input", "output"):
+        args = (rows,)
+    elif name == "instruction":
+        args = (tr["processor"].shape[0] + len(program), 1)
+    else:
+        args = (rows, 1)
+    tables = []
+    for cls in (jcls, tcls):
+        t = cls(*args)
+        t.matrix = np.asarray(tr[key], dtype=np.uint64).reshape(-1, t.base_width)
+        if len(t.matrix):
+            t.pad()
+        tables.append(t)
+    return tables
+
+
+def _xvals(rng, n):
+    return [tuple(int(v) for v in rng.integers(0, P, 3, dtype=np.uint64))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_extension_columns_and_terminals_match(trace, name):
+    program, tr = trace
+    jt, tt = _make(name, program, tr)
+    rng = np.random.default_rng(1)
+    ch, ini = _xvals(rng, 11), _xvals(rng, 2)
+    jcols = np.asarray(jt.extend(ch, ini, np))
+    cols, terms = tt.extend_pure(T(tt.matrix), T(ch), T(ini))
+    assert np.array_equal(jcols, U(cols).reshape(jcols.shape))
+    got_terms = {
+        n: tuple(int(v) for v in U(terms)[j])
+        for j, n in enumerate(tt.terminal_names)
+    }
+    assert got_terms == jt.terminals
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_quotients_and_degree_bounds_match(trace, name):
+    program, tr = trace
+    jt, tt = _make(name, program, tr)
+    rng = np.random.default_rng(2)
+    L = 64
+    base = rng.integers(0, P, size=(jt.base_width, L), dtype=np.uint64)
+    ext = rng.integers(0, P, size=(jt.num_ext_columns, L, 3), dtype=np.uint64)
+    zinv = {k: rng.integers(0, P, size=L, dtype=np.uint64)
+            for k in ("boundary", "transition", "terminal")}
+    ch, tm = _xvals(rng, 11), _xvals(rng, 5)
+    ja, ta = JAlg(np), TAlg("cpu")
+
+    def points(alg, conv, shift):
+        p = [alg.base(conv(np.roll(base[j], -shift))) for j in range(len(base))]
+        return p + [alg.x(conv(np.roll(ext[j], -shift, axis=0)))
+                    for j in range(len(ext))]
+
+    def args(alg, conv):
+        return (
+            alg, points(alg, conv, 0), points(alg, conv, 3),
+            [alg.x(conv(np.asarray(c, dtype=np.uint64))) for c in ch],
+            [alg.x(conv(np.asarray(t, dtype=np.uint64))) for t in tm],
+            {k: conv(v) for k, v in zinv.items()},
+        )
+
+    want = jt.quotients(*args(ja, lambda a: a))
+    got = tt.quotients(*args(ta, T))
+    assert len(want) == len(got) > 0
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), U(g))
+    assert jt.all_quotient_degree_bounds(ch, tm) == tt.all_quotient_degree_bounds(ch, tm)
+    ones = [(1, 0, 0)] * 11
+    jb = [c.symbolic_degree_bound([jt.interpolant_degree()] * (2 * jt.full_width))
+          for c in jt.symbolic_transition_constraints(ones)]
+    tb = [c.symbolic_degree_bound([tt.interpolant_degree()] * (2 * tt.full_width))
+          for c in tt.symbolic_transition_constraints(ones)]
+    assert jb == tb

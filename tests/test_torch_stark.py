@@ -1,0 +1,186 @@
+"""Torch port end to end: seeded proofs equal the JAX package's bytes, the
+two verifiers accept each other's proofs, tampering is rejected, the port
+needs a CUDA device unless asked for the CPU, and it imports no JAX."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import stark_brainfuck_tpu as J
+import stark_brainfuck_tpu_torch as TP
+from stark_brainfuck_tpu_torch.protocol.channel import ProofStream
+
+torch.set_num_threads(1)
+
+P = 2**64 - 2**32 + 1
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROGRAMS = {
+    "plus4": ("++++", "", 0),
+    "io": (",+.", "a", 0),
+    "loop": ("+>[+<-]", "", 0),
+    # FRI domain 16384: past device_commit_min, so the port commits with
+    # device trees (plain torch BLAKE2b here) while JAX's numpy path uses
+    # host trees
+    "device_commit": ("+" * 8 + "[->++++[-]<]", "", 7),
+}
+
+_CACHE = {}
+
+
+def _proofs(key):
+    """(jax stark, jax proof, port stark, port proof), computed once."""
+    if key not in _CACHE:
+        src, inp, seed = PROGRAMS[key]
+        program = J.VirtualMachine.compile(src)
+        tr = J.VirtualMachine.simulate(program, inp)
+        args = (tr["processor"], tr["memory"], tr["instruction"],
+                tr["input"], tr["output"])
+
+        def make(pkg, **kw):
+            return pkg.BrainfuckStark(
+                tr["processor"].shape[0], tr["memory"].shape[0], program, inp,
+                tr["output_data"], pkg.StarkConfig(seed=seed), **kw,
+            )
+
+        jb = make(J)
+        tb = make(TP, device="cpu")
+        _CACHE[key] = (jb, jb.prove(*args, xp=np), tb, tb.prove(*args))
+    return _CACHE[key]
+
+
+@pytest.mark.parametrize("key", list(PROGRAMS))
+def test_seeded_proof_bytes_equal_jax(key):
+    jb, pj, tb, pt = _proofs(key)
+    assert pt == pj
+    if key == "device_commit":
+        assert tb.fri.domain.length >= tb.config.device_commit_min
+        assert tb.last_metrics["hash_path"] == "torch-plain"
+
+
+@pytest.mark.parametrize("key", list(PROGRAMS))
+def test_proofs_cross_verify(key):
+    jb, pj, tb, pt = _proofs(key)
+    assert tb.verify(pj), tb.last_rejection
+    assert jb.verify(pt), jb.last_rejection
+
+
+def _tampered(tb, proof, mutate):
+    ps = ProofStream.deserialize(proof)
+    mutate(ps.objects)
+    assert not tb.verify(ps.serialize()), "tampered proof must be rejected"
+    assert tb.last_rejection
+    return tb.last_rejection
+
+
+def test_tampered_terminal_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        t = list(objs[2])
+        t[0] = (t[0] + 1) % P
+        objs[2] = tuple(t)
+
+    _tampered(tb, pt, mutate)
+
+
+def test_tampered_base_opening_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        el = list(objs[8])
+        el[1] = (int(el[1]) + 1) % P
+        objs[8] = tuple(el)
+
+    assert "base codeword opening" in _tampered(tb, pt, mutate)
+
+
+def test_tampered_fri_last_codeword_rejected():
+    _, _, tb, pt = _proofs("device_commit")
+
+    def mutate(objs):
+        for i in range(len(objs) - 1, -1, -1):
+            if isinstance(objs[i], list) and objs[i] and isinstance(objs[i][0], tuple):
+                last = list(objs[i])
+                c = list(last[0])
+                c[0] = (c[0] + 1) % P
+                last[0] = tuple(c)
+                objs[i] = last
+                return
+        raise AssertionError("no last codeword in the proof")
+
+    assert "FRI" in _tampered(tb, pt, mutate)
+
+
+def test_wrong_public_output_rejected():
+    jb, pj, _, _ = _proofs("io")
+    src, inp, seed = PROGRAMS["io"]
+    program = TP.VirtualMachine.compile(src)
+    tr = TP.VirtualMachine.simulate(program, inp)
+    lying = TP.BrainfuckStark(
+        tr["processor"].shape[0], tr["memory"].shape[0], program, inp, "X",
+        TP.StarkConfig(seed=seed), device="cpu",
+    )
+    assert not lying.verify(pj)
+
+
+def test_default_device_needs_cuda():
+    program = TP.VirtualMachine.compile("++++")
+    tr = TP.VirtualMachine.simulate(program)
+    args = (tr["processor"].shape[0], tr["memory"].shape[0], program, "",
+            tr["output_data"], TP.StarkConfig(seed=0))
+    if torch.cuda.is_available():
+        assert TP.BrainfuckStark(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TP.BrainfuckStark(*args)
+
+
+@pytest.mark.parametrize(
+    "fields",
+    [
+        {"mesh_shape": (("shard", 2),)},
+        {"codec": "ref"},
+        {"ntt_backend": "mxu"},
+        {"checkpoint_dir": "ckpt"},
+        {"stream_min": 1 << 9},
+    ],
+)
+def test_unported_options_raise(fields):
+    from dataclasses import asdict
+
+    from stark_brainfuck_tpu_torch.convert import config_from_fields
+
+    cfg = config_from_fields({**asdict(J.StarkConfig(seed=1)), **fields})
+    program = TP.VirtualMachine.compile("++++")
+    tr = TP.VirtualMachine.simulate(program)
+    with pytest.raises(NotImplementedError):
+        TP.BrainfuckStark(tr["processor"].shape[0], tr["memory"].shape[0],
+                          program, "", tr["output_data"], cfg, device="cpu")
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "stark_brainfuck_tpu_torch")
+    for base, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(base, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_imports_no_jax():
+    forbidden = ("jax", "jaxlib", "stark_brainfuck_tpu")
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in forbidden, f"{path} imports {n}"
