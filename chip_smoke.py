@@ -6,17 +6,27 @@ Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
-  2. build: compiles every kernel of the path (csrc/*.cu) with nvcc;
+  2. build: compiles every kernel source (csrc/*.cu) with nvcc, one
+     process each, all started together;
   3. B1 checks: the BLAKE2b kernel against its plain torch version and
      `hashlib` at the prover's shapes, with CUDA-event times;
-  4. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
-     give the same bytes, and both must verify;
-  5. full-size prove: a counter program of 2^15 cycles (FRI domain 2^21,
-     the largest resident one), a warm-up prove, two timed proves, verify;
-     kernel launch counts and the peak device memory at each stage mark
-     are read from the first timed prove;
-  6. the kernels line, then the card's name and power limit;
-  7. last line: {"ok": true, "device": {...}}.
+  4. B2 / B3 checks: the sub-NTT and outer-twiddle kernels against their
+     plain torch versions, exactly, at the full-size prove's four-step
+     shapes (FRI 2^21: r = 8192, c = 256; 19 base and 27 extension rows);
+     then ntt_full: the composed `ntt_kernel` against the u64 network at
+     (19, 2^21) and (27, 2^21), with both times;
+  5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
+     give the same bytes, and both must verify; the same again with
+     `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
+     default backend's;
+  6. full-size prove: a counter program of 2^15 cycles (FRI domain 2^21,
+     the largest resident one) on the default NTT path (full_prove) and
+     with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
+     each, then two timed proves each, in turns, every one with its kernel
+     launch counts, stage times and peak device memory at each stage mark;
+     all proofs byte-identical;
+  7. the kernels line, then the card's name and power limit;
+  8. last line: {"ok": true, "device": {...}}.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -46,11 +56,27 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # each) and 3 funnel rotates (2 SHF each; the rotate by 32 is a free half
 # swap), plus the 8-word feed-forward h ^= v ^ v' (2 LOP3 each)
 OPS_PER_COMPRESSION = 96 * (4 * 2 + 4 * 2 + 3 * 2) + 8 * 2
+# fewest 32-bit integer instructions per Goldilocks operation of
+# csrc/ntt.cu: a multiply is the 128-bit product (4 wide 32x32 partial
+# products, 4 carry adds) and its reduction (subtract hh with borrow 2,
+# hl*(2^32-1) as shift-subtract 2, add with carry 2, two conditional
+# corrections 2 each) = 18; an add is a 64-bit add 2, its wrap
+# correction 2 and the compare-subtract of p 2 = 6; a sub is 2 + 2 = 4.
+# A multiply by a power of two needs no wide product (it is a shift), so
+# only its reduction counts, 10; a multiply by 1 counts nothing
+GL_MUL_OPS = 18
+GL_POW2_MUL_OPS = 10
+GL_ADD_OPS = 6
+GL_SUB_OPS = 4
 
 # trace cycles of the full-size prove, and the message count of the B1
 # checks: the FRI domain is 64x the padded trace, 2^21
 LOG2_CYCLES = 15
 HASH_N = 1 << 21
+LOG2_FRI = 21
+# rows of the full-size prove's two forward LDE NTTs: 3 randomizer + 16
+# base columns, and 3 x 9 extension columns
+NTT_ROWS = {"base": 19, "ext": 27}
 
 # (n, W words, msg_len bytes) of the prover's BLAKE2b calls at FRI 2^21:
 # Merkle parents, salt/randomizer PRF, base leaf (19+3 words), ext leaf
@@ -161,6 +187,127 @@ def check_b1():
     return results
 
 
+def bound(nbytes: float, ops: float):
+    """(bound ms, what bounds it): the larger of the bytes over HBM
+    bandwidth and the 32-bit integer instructions over the issue ceiling."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def subntt_ops(m: int) -> int:
+    """Fewest 32-bit integer instructions of one m-point radix-2 NTT row.
+    Every butterfly adds and subtracts. Its multiply by the twiddle
+    w_{2h}^j (j < h, in the stage of half-width h) is no work for j = 0,
+    a reduction only when the twiddle is a 64th root of unity (the field's
+    are the powers of 8 = 2^3, so the product is a shift), and a full
+    multiply otherwise."""
+    ops, half = 0, 1
+    while half < m:
+        # j < h with w_{2h}^j a 64th root of unity: 64 j a multiple of 2h
+        pow2 = half if 2 * half <= 64 else 32
+        ops += (m // (2 * half)) * (
+            (pow2 - 1) * GL_POW2_MUL_OPS + (half - pow2) * GL_MUL_OPS
+            + half * (GL_ADD_OPS + GL_SUB_OPS)
+        )
+        half *= 2
+    return ops
+
+
+def random_field(rows: int, n: int, seed: int):
+    """(rows, n) canonical Goldilocks words made on the card from a seed,
+    with 0, 1 and p-1 first and p-1 last."""
+    from stark_brainfuck_tpu_torch.convert import to_i64
+    from stark_brainfuck_tpu_torch.ops import field as f
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo = torch.randint(0, 1 << 32, (rows, n), generator=g, device="cuda")
+    hi = torch.randint(0, 1 << 32, (rows, n), generator=g, device="cuda")
+    x = f.from_u64_mod_p((hi << 32) | lo)
+    del lo, hi
+    flat = x.view(-1)
+    p1 = to_i64(f.P - 1)
+    flat[:3] = torch.tensor([0, 1, p1], device="cuda")
+    flat[-1] = p1
+    return x
+
+
+def check_ntt_kernels():
+    """B2 and B3 against their plain versions at the full-size prove's
+    four-step shapes, then the composed transform against the u64
+    network. Returns (b2 rows, b3 rows)."""
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.ops import ntt as nt
+
+    n = 1 << LOG2_FRI
+    omega = f.primitive_nth_root(n)
+    plan = K.make_kernel_plan(n, omega, False, "cuda")
+    assert (plan.r, plan.c, plan.tw_hi.shape[0]) == (8192, 256, 2)
+    b2, b3 = [], []
+    seed = 100
+    for sub, rows_per in ((plan.sub_r, plan.c), (plan.sub_c, plan.r)):
+        for stage, k in NTT_ROWS.items():
+            rows, m = k * rows_per, sub.m
+            seed += 1
+            x = random_field(rows, m, seed)
+            got = K.subntt(x, sub)
+            plain = K.subntt_plain(x, sub)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain)
+            assert err == 0.0, f"B2 differs from plain torch at {(rows, m)}"
+            del got, plain
+            ms = cuda_ms(lambda: K.subntt(x, sub), reps=20)
+            plain_ms = cuda_ms(lambda: K.subntt_plain(x, sub), reps=3)
+            bound_ms, bound_by = bound(16 * rows * m + 4 * m,
+                                       rows * subntt_ops(m))
+            row = {"stage": stage, "rows": rows, "m": m, "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            emit("b2_check", **row)
+            b2.append(row)
+            del x
+    for stage, k in NTT_ROWS.items():
+        rows, r = k * plan.c, plan.r
+        seed += 1
+        y = random_field(rows, r, seed)
+        got = K.twiddle_outer(y, plan)
+        plain = K.twiddle_outer_plain(y, plan)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        assert err == 0.0, f"B3 differs from plain torch at {(rows, r)}"
+        del got, plain
+        ms = cuda_ms(lambda: K.twiddle_outer(y, plan), reps=20)
+        plain_ms = cuda_ms(lambda: K.twiddle_outer_plain(y, plan), reps=3)
+        tables = 8 * (128 + plan.c // 128) * r
+        bound_ms, bound_by = bound(16 * rows * r + tables,
+                                   2 * GL_MUL_OPS * rows * r)
+        row = {"stage": stage, "rows": rows, "r": r, "c": plan.c,
+               "hi_rows": plan.c // 128, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        emit("b3_check", **row)
+        b3.append(row)
+        del y
+    pack = nt.make_pack(n, omega, False, "cuda")
+    for stage, k in NTT_ROWS.items():
+        seed += 1
+        v = random_field(k, n, seed)
+        got = K.ntt_kernel(v, plan)
+        want = nt.ntt_with(v, pack)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        assert err == 0.0, f"ntt_kernel differs from the u64 network at {(k, n)}"
+        del got, want
+        kernel_ms = cuda_ms(lambda: K.ntt_kernel(v, plan), reps=20)
+        u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=5)
+        emit("ntt_full", stage=stage, rows=k, n=n, max_abs_err=err,
+             kernel_ms=kernel_ms, u64_ms=u64_ms)
+        del v
+    return b2, b3
+
+
 def counter_program(target_cycles: int) -> str:
     """Two-level counter: the largest program whose running time plus
     program length stays below `target_cycles`, so every table height
@@ -186,14 +333,14 @@ def counter_program(target_cycles: int) -> str:
     return "+" * lo + inner
 
 
-def make_stark(src: str, seed: int, device):
+def make_stark(src: str, seed: int, device, **config):
     from stark_brainfuck_tpu_torch import BrainfuckStark, StarkConfig, VirtualMachine
 
     program = VirtualMachine.compile(src)
     trace = VirtualMachine.simulate(program)
     bfs = BrainfuckStark(
         trace["processor"].shape[0], trace["memory"].shape[0], program, "",
-        trace["output_data"], StarkConfig(seed=seed), device=device,
+        trace["output_data"], StarkConfig(seed=seed, **config), device=device,
     )
     args = (trace["processor"], trace["memory"], trace["instruction"],
             trace["input"], trace["output"])
@@ -233,6 +380,120 @@ def profile_prove(bfs, args, out_dir):
               for e in events[:12]])
 
 
+def reset_counts():
+    from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    B.LAUNCHES = 0
+    K.LAUNCHES_SUBNTT = 0
+    K.LAUNCHES_TWIDDLE = 0
+
+
+def read_counts():
+    """Launches of B1, B2 and B3 since the last reset_counts()."""
+    from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    return {"b1": B.LAUNCHES, "b2": K.LAUNCHES_SUBNTT,
+            "b3": K.LAUNCHES_TWIDDLE}
+
+
+def full_proves(src, smi):
+    """The full-size prove on the default and the mxu NTT path: a warm-up
+    prove and verify for each, then two timed proves each, in turns
+    (default, mxu, mxu, default) so the two are compared on the same card
+    in the same state. Launch counts are set to 0 just before each timed
+    prove and read just after it; stage times and peak bytes are kept per
+    prove. Every proof must equal the default path's warm-up bytes.
+    Returns ({path: (stark, args)}, {path: launch counts per prove})."""
+    paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"}}
+    starks, warm, runs = {}, {}, {p: [] for p in paths}
+    proof = None
+    for phase, config in paths.items():
+        bfs, args = make_stark(src, 0, "cuda", **config)
+        t0 = time.time()
+        got = bfs.prove(*args)
+        warm[phase] = time.time() - t0
+        assert bfs.verify(got), f"{phase}: proof failed to verify"
+        proof = proof or got
+        assert got == proof, f"{phase}: bytes differ from the default path"
+        starks[phase] = (bfs, args)
+    for phase in ("full_prove", "full_prove_mxu", "full_prove_mxu",
+                  "full_prove"):
+        bfs, args = starks[phase]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = bfs.prove(*args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        assert got == proof, f"{phase}: seeded proves differ"
+        assert counts["b1"] > 0, f"{phase}: launched no B1 kernel"
+        runs[phase].append({
+            "prove_s": wall, "launches": counts,
+            "stages_s": bfs.last_metrics["stages_s"],
+            "fri_round_s": bfs.last_metrics["fri_round_s"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "peak_bytes_at_mark": bfs.last_metrics["peak_bytes_at_mark"],
+        })
+    for phase, (bfs, args) in starks.items():
+        rs = runs[phase]
+        cycles = int(args[0].shape[0])
+        emit(phase, target_cycles=1 << LOG2_CYCLES, trace_cycles=cycles,
+             fri_domain=bfs.fri.domain.length,
+             cycles_per_s=cycles / min(r["prove_s"] for r in rs),
+             prove_s=[r["prove_s"] for r in rs], warmup_prove_s=warm[phase],
+             ntt_path=bfs.last_metrics["ntt_path"], proof_bytes=len(proof),
+             verified=True, identical_to_default=True, runs=rs,
+             nvidia_smi=smi)
+    return starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()}
+
+
+def bytes_across_devices(phase, src, want=None, **config):
+    """The same seeded proof on cuda and on cpu; both verify. Returns the
+    proof and the cuda prove's launch counts."""
+    bfs_gpu, args = make_stark(src, 7, "cuda", **config)
+    reset_counts()
+    proof_gpu = bfs_gpu.prove(*args)
+    counts = read_counts()
+    bfs_cpu, _ = make_stark(src, 7, "cpu", **config)
+    proof_cpu = bfs_cpu.prove(*args)
+    assert bfs_gpu.fri.domain.length >= bfs_gpu.config.device_commit_min
+    assert proof_gpu == proof_cpu, f"{phase}: cuda and cpu proofs differ"
+    assert want is None or proof_gpu == want, f"{phase}: bytes differ"
+    assert bfs_gpu.verify(proof_gpu) and bfs_cpu.verify(proof_cpu)
+    assert counts["b1"] > 0, f"{phase}: device-commit prove launched no B1"
+    emit(phase, fri_domain=bfs_gpu.fri.domain.length,
+         proof_bytes=len(proof_gpu), identical=True, verified=True,
+         identical_to_default=want is not None,
+         ntt_path=[bfs_gpu.last_metrics["ntt_path"],
+                   bfs_cpu.last_metrics["ntt_path"]],
+         launches=counts)
+    return proof_gpu, counts
+
+
+def kernel_entry(name, source, replaces, launches, rows, main, at):
+    """One row of the kernels line: ms, plain_ms and bound at the main
+    shape `rows[main]`, the largest error over every checked shape."""
+    main_shape = rows[main]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "at": {k: main_shape[k] for k in at},
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -243,7 +504,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import cuda_build
 
     # 1. device
     smi = smi_line()
@@ -252,86 +513,63 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build every kernel of the path
+    # 2. build every kernel source, in parallel
     t0 = time.time()
-    lib = B.build_kernel()
-    emit("build", kernels={"blake2b": os.path.relpath(lib)},
-         seconds=time.time() - t0)
+    libs = cuda_build.build()
+    ptxas = {}
+    for name, lib in libs.items():
+        log = lib[:-3] + ".log"
+        if os.path.exists(log):
+            with open(log) as fh:
+                ptxas[name] = [ln.strip() for ln in fh
+                               if "Used" in ln or "spill" in ln]
+    emit("build", kernels={k: os.path.relpath(v) for k, v in libs.items()},
+         seconds=time.time() - t0, ptxas=ptxas)
+    assert {"blake2b", "ntt"} <= set(libs), libs
 
     # 3. B1 against its plain version and hashlib at the prover's shapes
     b1 = check_b1()
 
-    # 4. the same seeded proof on cuda and on cpu
+    # 4. B2 / B3 against their plain versions; the composed transform
+    # against the u64 network
+    b2, b3 = check_ntt_kernels()
+
+    # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
     src = "+" * 8 + "[->++++[-]<]"
-    bfs_gpu, args = make_stark(src, 7, "cuda")
-    B.LAUNCHES = 0
-    proof_gpu = bfs_gpu.prove(*args)
-    launches_small = B.LAUNCHES
-    bfs_cpu, _ = make_stark(src, 7, "cpu")
-    proof_cpu = bfs_cpu.prove(*args)
-    assert bfs_gpu.fri.domain.length >= bfs_gpu.config.device_commit_min
-    assert proof_gpu == proof_cpu, "cuda and cpu proofs differ"
-    assert bfs_gpu.verify(proof_gpu) and bfs_cpu.verify(proof_cpu)
-    assert launches_small > 0, "device-commit prove launched no B1 kernel"
-    emit("bytes_across_devices", fri_domain=bfs_gpu.fri.domain.length,
-         proof_bytes=len(proof_gpu), identical=True, verified=True,
-         b1_launches=launches_small)
+    proof_small, _ = bytes_across_devices("bytes_across_devices", src)
+    _, counts = bytes_across_devices(
+        "bytes_across_devices_mxu", src, want=proof_small, ntt_backend="mxu"
+    )
+    assert counts["b2"] > 0 and counts["b3"] > 0, (
+        "mxu prove launched no B2/B3 kernel"
+    )
 
-    # 5. full-size prove on the card
-    target = 1 << LOG2_CYCLES
-    src = counter_program(target)
-    bfs, args = make_stark(src, 0, "cuda")
-    cycles = int(args[0].shape[0])
-    t0 = time.time()
-    proof = bfs.prove(*args)
-    warm_s = time.time() - t0
-    assert bfs.verify(proof), "full-size proof failed to verify"
-    torch.cuda.reset_peak_memory_stats()
-    prove_s = []
-    launches = None
-    for rep in range(2):
-        if rep == 0:
-            B.LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        again = bfs.prove(*args)
-        torch.cuda.synchronize()
-        prove_s.append(time.time() - t0)
-        if rep == 0:
-            launches = B.LAUNCHES
-            stages = bfs.last_metrics["stages_s"]
-            peaks = bfs.last_metrics["peak_bytes_at_mark"]
-        assert again == proof, "seeded proves differ"
-    assert launches > 0, "full-size prove launched no B1 kernel"
-    best = min(prove_s)
-    emit("full_prove", target_cycles=target, trace_cycles=cycles,
-         fri_domain=bfs.fri.domain.length, cycles_per_s=cycles / best,
-         prove_s=prove_s, warmup_prove_s=warm_s, stages_s=stages,
-         fri_round_s=bfs.last_metrics["fri_round_s"],
-         proof_bytes=len(proof), verified=True, b1_launches=launches,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         peak_bytes_at_mark=peaks,
-         nvidia_smi=smi)
-
+    # 6. full-size prove on the card, default and mxu NTT in turns
+    starks, launches = full_proves(counter_program(1 << LOG2_CYCLES), smi)
+    for counts in launches["full_prove"]:
+        assert (counts["b2"], counts["b3"]) == (0, 0), counts
+    # one four-step transform per LDE stage: two sub-NTTs and one twiddle
+    for counts in launches["full_prove_mxu"]:
+        assert (counts["b2"], counts["b3"]) == (4, 2), counts
     if opts.profile:
-        profile_prove(bfs, args, opts.profile)
+        profile_prove(*starks["full_prove"], opts.profile)
+    counts = launches["full_prove_mxu"][0]
 
-    # 6. kernels line (ms at the prover's largest leaf shape)
-    main_shape = b1[3]
-    kernels = [{
-        "name": "blake2b_words",
-        "route": "cuda",
-        "source": "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
-        "replaces": "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in b1),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "at": {k: main_shape[k] for k in ("n", "W", "msg_len")},
-    }]
+    # 7. kernels line (ms at the prover's largest shape of each kernel)
+    # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
+    # extension rows)
+    kernels = [
+        kernel_entry("blake2b_words", "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
+                     "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
+                     launches["full_prove"][0]["b1"], b1, 3,
+                     ("n", "W", "msg_len")),
+        kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
+                     "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
+                     counts["b2"], b2, 1, ("rows", "m")),
+        kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
+                     "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
+                     counts["b3"], b3, 1, ("rows", "r", "c")),
+    ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,8 +45,11 @@ class StarkConfig:
     # stage checkpoints belong to the streamed prover (not ported yet)
     checkpoint_dir: Optional[str] = None
 
-    # forward-LDE NTT: "auto" and "u64" run the u64 butterfly network;
-    # "mxu" (the int8-limb kernels) is not ported yet
+    # forward-LDE NTT: "auto" and "u64" run the u64 butterfly network (as
+    # the JAX package resolves "auto"); "mxu" runs the four-step transform
+    # on kernels B2/B3 (ops/kernel_ntt.py, csrc/ntt.cu), the port of the JAX
+    # package's int8-limb MXU path. mxu_ntt_min is accepted and unused, as
+    # there.
     ntt_backend: str = "auto"
     mxu_ntt_min: int = 1 << 14
 
@@ -79,11 +82,7 @@ class StarkConfig:
             )
         if self.codec != "native":
             raise ValueError(f"unknown codec {self.codec!r}")
-        if self.ntt_backend == "mxu":
-            raise NotImplementedError(
-                "ntt_backend='mxu': kernels B2/B3 are ROADMAP Queue B"
-            )
-        if self.ntt_backend not in ("auto", "u64"):
+        if self.ntt_backend not in ("auto", "u64", "mxu"):
             raise ValueError(f"unknown ntt_backend {self.ntt_backend!r}")
         if self.checkpoint_dir:
             raise NotImplementedError(

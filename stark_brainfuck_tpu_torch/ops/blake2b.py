@@ -6,7 +6,7 @@ whole batch in one call:
 
   - a CUDA tensor goes to the hand-written Hopper kernel
     (`csrc/blake2b.cu`, one thread per message, state in registers), built
-    with nvcc at first use and bound through ctypes;
+    by `cuda_build` at first use and bound through ctypes;
   - a CPU tensor goes to `blake2b_words_plain`, the same compression
     function as a torch program vectorised over the message axis.
 
@@ -19,15 +19,11 @@ equal `hashlib.blake2b(payload).digest()` (digest_size=64, no key).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from ..convert import to_i64
+from . import cuda_build
 
 # launches of the CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
@@ -122,55 +118,13 @@ def blake2b_words_plain(words, msg_len: int):
 # the Hopper kernel
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "blake2b.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".torch_kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
 _LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the BLAKE2b kernel cannot be built")
-
-
-def build_kernel() -> str:
-    """Compile csrc/blake2b.cu into .torch_kernels/ (once per source
-    content) and return the library path. Returns the path of an existing
-    build when the source is unchanged."""
-    with open(_SOURCE, "rb") as fh:
-        tag = hashlib.blake2b(fh.read(), digest_size=8).hexdigest()
-    out = os.path.join(BUILD_DIR, f"libblake2b-{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-            check=True,
-        )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
 
 
 def _kernel_lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build_kernel())
+        lib = cuda_build.load("blake2b")
         lib.blake2b_words_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

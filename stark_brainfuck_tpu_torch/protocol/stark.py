@@ -9,7 +9,8 @@ single-device, native-codec prover:
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
     as int64 tensor programs on `device` (CUDA unless the caller asks for
-    the CPU);
+    the CPU); with `ntt_backend="mxu"` the forward LDE NTT of both stages
+    is the four-step transform on kernels B2/B3 (`ops/kernel_ntt.py`);
   - from `device_commit_min` up, every commitment is a device Merkle tree
     hashed by kernel B1; below it the trees are built on the host;
   - the verifier recomputes the quotients with the same constraint
@@ -34,6 +35,7 @@ from ..models.processor import ProcessorTable
 from ..models.table import roundup_npo2
 from ..ops import blake2b as B
 from ..ops import field as f
+from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
 from ..ops import scan as sc
 from ..ops import xfield as xf
@@ -230,16 +232,34 @@ class BrainfuckStark:
         self._zinv_cache = out
         return out
 
+    def _ntt_path(self) -> str:
+        """The forward-LDE NTT that `ntt_backend` resolves to: the four-step
+        transform on kernels B2/B3 for "mxu" (their plain torch versions on
+        the CPU), else the u64 butterfly network."""
+        if self.config.ntt_backend != "mxu":
+            return "u64-torch"
+        return ("four-step-cuda" if self.device.type == "cuda"
+                else "four-step-plain")
+
     def _lde_packs(self):
-        """NTT twiddle and coset scale tables on the device, cached."""
+        """NTT twiddle and coset scale tables on the device, cached per
+        resolved NTT path."""
+        path = self._ntt_path()
         cache = getattr(self, "_packs_cache", None)
-        if cache is not None:
-            return cache
+        if cache is not None and cache[0] == path:
+            return cache[1]
         dev = self.device
         fri = self.fri
         N = fri.domain.length
+        if path == "u64-torch":
+            fwd = nt.make_pack(N, fri.domain.omega, False, dev)
+        else:
+            # check_domain keeps N below stream_min; the kernel plan covers
+            # every resident domain up to 2^26 and nothing falls back
+            assert N <= kn.KERNEL_NTT_MAX, N
+            fwd = kn.make_kernel_plan(N, fri.domain.omega, False, dev)
         packs = {
-            "fwd": nt.make_pack(N, fri.domain.omega, False, dev),
+            "fwd": fwd,
             "rand_scale": nt.scale_table(
                 fri.domain.offset, self.max_degree + 1, dev
             ),
@@ -255,8 +275,17 @@ class BrainfuckStark:
                 for t in self.tables
             ),
         }
-        self._packs_cache = packs
+        self._packs_cache = (path, packs)
         return packs
+
+    @staticmethod
+    def _fwd_ntt(coeffs, packs):
+        """The shared forward N-point NTT of both LDE stages: the four-step
+        kernel plan (B2/B3) or the u64 butterfly network, bit-identical."""
+        fwd = packs["fwd"]
+        if isinstance(fwd, kn.KernelNttPlan):
+            return kn.ntt_kernel(coeffs, fwd)
+        return nt.ntt_with(coeffs, fwd)
 
     # -- prover stages -------------------------------------------------------
 
@@ -282,7 +311,7 @@ class BrainfuckStark:
             else:
                 tp = packs["tables"][i]
                 rows.append(nt.lde_coefficients(m.T, r, tp[0], tp[1], N))
-        all_cws = nt.ntt_with(torch.cat(rows, dim=0), packs["fwd"])
+        all_cws = self._fwd_ntt(torch.cat(rows, dim=0), packs)
         rand_cw = all_cws[:3].movedim(0, -1)  # (N, 3)
         base_cws = []
         pos = 3
@@ -331,7 +360,7 @@ class BrainfuckStark:
                 rr = r.movedim(-1, 1).reshape((-1, r.shape[1]))
             rows.append(nt.lde_coefficients(trace, rr, tp[0], tp[1], N))
             layout.append((i, t.num_ext_columns))
-        all_cws = nt.ntt_with(torch.cat(rows, dim=0), packs["fwd"])
+        all_cws = self._fwd_ntt(torch.cat(rows, dim=0), packs)
         ext_cws = []
         pos = 0
         for i, n_ext in layout:
@@ -455,7 +484,7 @@ class BrainfuckStark:
         N = fri.domain.length
         timer = StageTimer(dev)
         _mark = timer.mark
-        launches0 = B.LAUNCHES
+        launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE)
 
         # 1. populate and pad (ref brainfuck_stark.py:139-150)
         assert len(processor_matrix) + len(self.program) == len(instruction_matrix)
@@ -682,13 +711,15 @@ class BrainfuckStark:
             hash_leaves=hash_leaves,
             fri_round_s=self.fri.last_round_s,
             device=str(dev),
-            ntt_path="u64-torch",
+            ntt_path=self._ntt_path(),
             hash_path=(
                 "host-hashlib" if not device_commit
                 else "cuda-blake2b" if dev.type == "cuda"
                 else "torch-plain"
             ),
-            blake2b_launches=B.LAUNCHES - launches0,
+            blake2b_launches=B.LAUNCHES - launches0[0],
+            subntt_launches=kn.LAUNCHES_SUBNTT - launches0[1],
+            twiddle_outer_launches=kn.LAUNCHES_TWIDDLE - launches0[2],
         )
         return proof
 

@@ -142,6 +142,7 @@ def test_device_tree_roots_and_paths_match_host_merkle(n, salted):
         assert np.array_equal(tree.row_at(i), rows[i])
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """On the card: kernel B1 against the plain torch version."""
     if not torch.cuda.is_available():

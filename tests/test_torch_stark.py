@@ -31,25 +31,40 @@ PROGRAMS = {
 _CACHE = {}
 
 
+def _setup(key):
+    src, inp, seed = PROGRAMS[key]
+    program = J.VirtualMachine.compile(src)
+    tr = J.VirtualMachine.simulate(program, inp)
+    args = (tr["processor"], tr["memory"], tr["instruction"],
+            tr["input"], tr["output"])
+
+    def make(pkg, **kw):
+        cfg = {"seed": seed, **kw.pop("config", {})}
+        return pkg.BrainfuckStark(
+            tr["processor"].shape[0], tr["memory"].shape[0], program, inp,
+            tr["output_data"], pkg.StarkConfig(**cfg), **kw,
+        )
+
+    return make, args
+
+
 def _proofs(key):
     """(jax stark, jax proof, port stark, port proof), computed once."""
     if key not in _CACHE:
-        src, inp, seed = PROGRAMS[key]
-        program = J.VirtualMachine.compile(src)
-        tr = J.VirtualMachine.simulate(program, inp)
-        args = (tr["processor"], tr["memory"], tr["instruction"],
-                tr["input"], tr["output"])
-
-        def make(pkg, **kw):
-            return pkg.BrainfuckStark(
-                tr["processor"].shape[0], tr["memory"].shape[0], program, inp,
-                tr["output_data"], pkg.StarkConfig(seed=seed), **kw,
-            )
-
+        make, args = _setup(key)
         jb = make(J)
         tb = make(TP, device="cpu")
         _CACHE[key] = (jb, jb.prove(*args, xp=np), tb, tb.prove(*args))
     return _CACHE[key]
+
+
+def _mxu_proof(key):
+    """(port stark, port proof) with ntt_backend="mxu", computed once."""
+    if ("mxu", key) not in _CACHE:
+        make, args = _setup(key)
+        tb = make(TP, device="cpu", config={"ntt_backend": "mxu"})
+        _CACHE["mxu", key] = (tb, tb.prove(*args))
+    return _CACHE["mxu", key]
 
 
 @pytest.mark.parametrize("key", list(PROGRAMS))
@@ -64,6 +79,32 @@ def test_seeded_proof_bytes_equal_jax(key):
 @pytest.mark.parametrize("key", list(PROGRAMS))
 def test_proofs_cross_verify(key):
     jb, pj, tb, pt = _proofs(key)
+    assert tb.verify(pj), tb.last_rejection
+    assert jb.verify(pt), jb.last_rejection
+
+
+# plus4: a single sub-NTT (N <= 2^13); device_commit: N = 2^14, the
+# composed four-step path with r = c = 128
+MXU_GEOMETRY = {"plus4": False, "device_commit": True}
+
+
+@pytest.mark.parametrize("key", list(MXU_GEOMETRY))
+def test_mxu_seeded_proof_bytes_equal_jax(key):
+    _, pj, tb0, _ = _proofs(key)
+    tb, pt = _mxu_proof(key)
+    assert pt == pj
+    assert tb.last_metrics["ntt_path"] == "four-step-plain"
+    assert tb0.last_metrics["ntt_path"] == "u64-torch"
+    plan = tb._lde_packs()["fwd"]
+    assert (plan.sub_c is not None) == MXU_GEOMETRY[key]
+    if MXU_GEOMETRY[key]:
+        assert (plan.r, plan.c) == (128, 128)
+
+
+@pytest.mark.parametrize("key", list(MXU_GEOMETRY))
+def test_mxu_proofs_cross_verify(key):
+    jb, pj, _, _ = _proofs(key)
+    tb, pt = _mxu_proof(key)
     assert tb.verify(pj), tb.last_rejection
     assert jb.verify(pt), jb.last_rejection
 
@@ -144,7 +185,6 @@ def test_default_device_needs_cuda():
     [
         {"mesh_shape": (("shard", 2),)},
         {"codec": "ref"},
-        {"ntt_backend": "mxu"},
         {"checkpoint_dir": "ckpt"},
         {"stream_min": 1 << 9},
     ],
