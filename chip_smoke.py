@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
@@ -10,11 +10,16 @@ line each; any failure raises and exits non-zero:
      process each, all started together;
   3. B1 checks: the BLAKE2b kernel against its plain torch version and
      `hashlib` at the prover's shapes, with CUDA-event times;
-  4. B2 / B3 checks: the sub-NTT and outer-twiddle kernels against their
+  4. B2 at every size m = 2 .. 2^13, forward and inverse, contiguous and
+     strided with a ragged last tile, against its plain version, exactly;
+     then B2 / B3 checks: the sub-NTT and outer-twiddle kernels against their
      plain torch versions, exactly, at the full-size prove's four-step
-     shapes (FRI 2^21: r = 8192, c = 256; 19 base and 27 extension rows);
-     then ntt_full: the composed `ntt_kernel` against the u64 network at
-     (19, 2^21) and (27, 2^21), with both times;
+     shapes (FRI 2^21: c = 1024, r = 2048; 19 base and 27 extension rows):
+     B2 in the two strided forms that `ntt_kernel` launches (the column
+     pass, and the row pass with its transposed store) and in the
+     contiguous `subntt` form; then ntt_full: the composed `ntt_kernel`
+     against the u64 network at (19, 2^21) and (27, 2^21), with both times
+     and the transform's own bound (two passes over the block of rows);
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
      give the same bytes, and both must verify; the same again with
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
@@ -27,6 +32,11 @@ line each; any failure raises and exits non-zero:
      all proofs byte-identical;
   7. the kernels line, then the card's name and power limit;
   8. last line: {"ok": true, "device": {...}}.
+
+`--b2-sweep` and `--b2-parts` are measuring aids for kernel B2: after the
+build they time it under several tile shapes, or with its arithmetic or
+its memory traffic cut out of the source, print one JSON line each and
+stop before the checks.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -100,6 +110,33 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sass_counts(library: str):
+    """{kernel: {"total": SASS instructions in its code, "opcodes": the
+    eight most frequent base opcodes and their counts}} of a built library,
+    read from `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", library], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        short = next((k for k in ("blake2b_words_kernel", "subntt_kernel",
+                                  "twiddle_outer_kernel") if k in name), name)
+        opcodes = collections.Counter(
+            op.split(".")[0] for op in re.findall(
+                r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                chunk, flags=re.M))
+        counts[short] = {"total": sum(opcodes.values()),
+                         "opcodes": dict(opcodes.most_common(8))}
+    return counts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -233,6 +270,59 @@ def random_field(rows: int, n: int, seed: int):
     return x
 
 
+def b2_forms(plan, k):
+    """B2's launches for k rows of the plan's n: (form, sub-plan, batches,
+    vectors, source strides, destination strides). `columns` and
+    `rows_transposed` are the two passes as `ntt_kernel` launches them,
+    `contiguous_*` the plain `subntt` form at the same sizes."""
+    from stark_brainfuck_tpu_torch.ops.kernel_ntt import Strides
+
+    n, r, c = plan.n, plan.r, plan.c
+    return [
+        ("columns", plan.sub_c, k, r, Strides(n, 1, r), Strides(n, 1, r)),
+        ("rows_transposed", plan.sub_r, k, c, Strides(n, r, 1),
+         Strides(n, 1, c)),
+        ("contiguous_c", plan.sub_c, 1, k * r, Strides(0, c, 1),
+         Strides(0, c, 1)),
+        ("contiguous_r", plan.sub_r, 1, k * c, Strides(0, r, 1),
+         Strides(0, r, 1)),
+    ]
+
+
+def check_b2_every_size():
+    """B2 against its plain version at every size it takes, m = 2 .. 2^13,
+    forward and inverse (scaled by m^-1): 5 contiguous rows, and 2 batches
+    of 12 vectors in the column form and in the transposed-store form,
+    which leave the last tile ragged. Exact, or it raises."""
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    cases, kappas = 0, set()
+    for log_m in range(1, 14):
+        m = 1 << log_m
+        for inverse in (False, True):
+            root = f.primitive_nth_root(m)
+            sub = K._sub_plan(m, f.h_inverse(root) if inverse else root,
+                              f.h_inverse(m) if inverse else 1, "cuda")
+            kappas.add(sub.kappa)
+            x = random_field(5, m, 200 + log_m)
+            assert torch.equal(K.subntt(x, sub), K.subntt_plain(x, sub)), (
+                f"B2 differs from plain torch at 5 rows of {m}")
+            B, nvec = 2, 12
+            n = m * nvec
+            x = random_field(B, n, 300 + log_m)
+            for src, dst in ((K.Strides(n, 1, nvec), K.Strides(n, 1, nvec)),
+                             (K.Strides(n, m, 1), K.Strides(n, 1, nvec))):
+                got = K.subntt_tiled(x, sub, B, nvec, src, dst)
+                want = K.subntt_tiled_plain(x, sub, B, nvec, src, dst)
+                assert torch.equal(got, want), (
+                    f"B2 differs from plain torch at m = {m}, {src} -> {dst}")
+            cases += 3
+    torch.cuda.synchronize()
+    emit("b2_every_size", sizes=13, cases=cases, kappas=sorted(kappas),
+         max_abs_err=0.0)
+
+
 def check_ntt_kernels():
     """B2 and B3 against their plain versions at the full-size prove's
     four-step shapes, then the composed transform against the u64
@@ -244,26 +334,38 @@ def check_ntt_kernels():
     n = 1 << LOG2_FRI
     omega = f.primitive_nth_root(n)
     plan = K.make_kernel_plan(n, omega, False, "cuda")
-    assert (plan.r, plan.c, plan.tw_hi.shape[0]) == (8192, 256, 2)
+    assert (plan.r, plan.c, plan.tw_hi.shape[0]) == (2048, 1024, 8)
     b2, b3 = [], []
     seed = 100
-    for sub, rows_per in ((plan.sub_r, plan.c), (plan.sub_c, plan.r)):
-        for stage, k in NTT_ROWS.items():
-            rows, m = k * rows_per, sub.m
+    for stage, k in NTT_ROWS.items():
+        for form, sub, batches, nvec, src, dst in b2_forms(plan, k):
+            m = sub.m
             seed += 1
-            x = random_field(rows, m, seed)
-            got = K.subntt(x, sub)
-            plain = K.subntt_plain(x, sub)
+            x = random_field(batches * nvec, m, seed)
+            if form.startswith("contiguous"):
+                got = K.subntt(x, sub)
+                plain = K.subntt_plain(x, sub)
+                run = lambda: K.subntt(x, sub)
+                run_plain = lambda: K.subntt_plain(x, sub)
+            else:
+                got = K.subntt_tiled(x, sub, batches, nvec, src, dst)
+                plain = K.subntt_tiled_plain(x, sub, batches, nvec, src, dst)
+                run = lambda: K.subntt_tiled(x, sub, batches, nvec, src, dst)
+                run_plain = lambda: K.subntt_tiled_plain(
+                    x, sub, batches, nvec, src, dst)
             torch.cuda.synchronize()
             err = max_abs_err(got, plain)
-            assert err == 0.0, f"B2 differs from plain torch at {(rows, m)}"
+            assert err == 0.0, f"B2 differs from plain torch at {(form, stage)}"
             del got, plain
-            ms = cuda_ms(lambda: K.subntt(x, sub), reps=20)
-            plain_ms = cuda_ms(lambda: K.subntt_plain(x, sub), reps=3)
-            bound_ms, bound_by = bound(16 * rows * m + 4 * m,
+            ms = cuda_ms(run, reps=20)
+            plain_ms = cuda_ms(run_plain, reps=3)
+            rows = batches * nvec
+            bound_ms, bound_by = bound(16 * rows * m + 8 * sub.table.numel(),
                                        rows * subntt_ops(m))
-            row = {"stage": stage, "rows": rows, "m": m, "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            row = {"stage": stage, "form": form, "rows": rows, "m": m,
+                   "tile": K.tile_shape(m, src.elem != 1 or dst.elem != 1),
+                   "kappa": sub.kappa, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by}
             emit("b2_check", **row)
             b2.append(row)
@@ -302,10 +404,116 @@ def check_ntt_kernels():
         del got, want
         kernel_ms = cuda_ms(lambda: K.ntt_kernel(v, plan), reps=20)
         u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=5)
-        emit("ntt_full", stage=stage, rows=k, n=n, max_abs_err=err,
-             kernel_ms=kernel_ms, u64_ms=u64_ms)
+        # the least the transform can move: no 2^21-point row fits an SM,
+        # so the block of rows is read and written twice
+        bound_ms, _ = bound(2 * 16 * k * n, 0)
+        emit("ntt_full", stage=stage, rows=k, n=n, r=plan.r, c=plan.c,
+             max_abs_err=err, kernel_ms=kernel_ms, u64_ms=u64_ms,
+             bound_ms=bound_ms)
         del v
     return b2, b3
+
+
+def b2_sweep():
+    """Times B2's two four-step passes and the whole transform at the
+    extension shape (27 rows of 2^21) under several tile shapes (the
+    LOG_TILE and LOG_TI_STRIDED of ops/kernel_ntt.py), each held equal to
+    the first one's output. A tuning aid, not a check."""
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    n, k = 1 << LOG2_FRI, NTT_ROWS["ext"]
+    plan = K.make_kernel_plan(n, f.primitive_nth_root(n), False, "cuda")
+    v = random_field(k, n, 7)
+    want = None
+    defaults = (K.LOG_TILE, K.LOG_TI_STRIDED)
+    try:
+        for shape in [defaults, (12, 3), (13, 3), (11, 2), (11, 1), defaults]:
+            K.LOG_TILE, K.LOG_TI_STRIDED = shape
+            got = K.ntt_kernel(v, plan)
+            want = got if want is None else want
+            assert torch.equal(got, want), shape
+            del got
+            forms = {}
+            for form, sub, batches, nvec, src, dst in b2_forms(plan, k)[:2]:
+                forms[form] = {
+                    "tile": K.tile_shape(sub.m, True),
+                    "ms": cuda_ms(lambda: K.subntt_tiled(
+                        v, sub, batches, nvec, src, dst), reps=20)}
+            emit("b2_sweep", log_tile=shape[0], log_ti_strided=shape[1],
+                 forms=forms,
+                 ntt_kernel_ms=cuda_ms(lambda: K.ntt_kernel(v, plan), reps=20))
+    finally:
+        K.LOG_TILE, K.LOG_TI_STRIDED = defaults
+
+
+# B2 with parts cut out of its source, to see what its time is made of:
+# (name, [(text in csrc/ntt.cu, replacement), ...]). The outputs are wrong;
+# only the times mean anything.
+B2_PARTS = {
+    # loads, exchanges, barriers and stores, no field arithmetic
+    "no_arithmetic": [
+        ("dft_pow2<R>(a + g * R);", ""),
+        ("if (!LAST && jr != 0) b = gl_mul(b, __ldg(tw + ((jr - 1) << "
+         "(log_n - LR))));", ""),
+    ],
+    # all the arithmetic and exchanges, no global loads or stores
+    "no_global_memory": [
+        ("copy_async8(dst + (k << log_bf), src + k * k_stride, valid);", ";"),
+        ("if (vec < A.nvec) dst[j * j_stride] = b;",
+         "if (b == 0x123456789ULL) dst[j * j_stride] = b;"),
+    ],
+}
+
+
+def b2_parts():
+    """Times B2 at the extension shape (27 rows of 2^21) as it is, then
+    with its arithmetic cut out, then with its global memory traffic cut
+    out, each variant built here from csrc/ntt.cu with the port's own nvcc
+    flags; a torch copy of the same bytes beside them. Says which of the
+    two bounds the kernel. A measuring aid, not a check."""
+    import ctypes
+
+    from stark_brainfuck_tpu_torch.ops import cuda_build
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "ntt.cu")) as fh:
+        source = fh.read()
+    parts_dir = os.path.join(cuda_build.BUILD_DIR, "parts")
+    os.makedirs(parts_dir, exist_ok=True)
+    real = K._kernel_lib()
+    libs = {"whole": real}
+    for name, cuts in B2_PARTS.items():
+        text = source
+        for old, new in cuts:
+            assert old in text, f"csrc/ntt.cu no longer has: {old}"
+            text = text.replace(old, new)
+        cu = os.path.join(parts_dir, f"{name}.cu")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        so = cu[:-3] + ".so"
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so,
+                        cu], check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+        lib.subntt_launch.argtypes = real.subntt_launch.argtypes
+        lib.subntt_launch.restype = ctypes.c_int
+        libs[name] = lib
+    n, k = 1 << LOG2_FRI, NTT_ROWS["ext"]
+    plan = K.make_kernel_plan(n, f.primitive_nth_root(n), False, "cuda")
+    v = random_field(k, n, 7)
+    w = torch.empty_like(v)
+    emit("b2_parts", variant="torch_copy", bytes=16 * k * n,
+         ms=cuda_ms(lambda: w.copy_(v), reps=20))
+    try:
+        for name in ("whole", *B2_PARTS, "whole"):
+            K._LIB = libs[name]
+            emit("b2_parts", variant=name, ms={
+                form: cuda_ms(lambda: K.subntt_tiled(
+                    v, sub, batches, nvec, src, dst), reps=20)
+                for form, sub, batches, nvec, src, dst in b2_forms(plan, k)})
+    finally:
+        K._LIB = real
 
 
 def counter_program(target_cycles: int) -> str:
@@ -499,6 +707,12 @@ def main():
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace one full-size prove with torch.profiler "
                          "and write its kernel table to DIR")
+    ap.add_argument("--b2-sweep", action="store_true",
+                    help="after the build, time kernel B2 under several "
+                         "tile shapes and stop")
+    ap.add_argument("--b2-parts", action="store_true",
+                    help="after the build, time kernel B2 with its arithmetic "
+                         "or its memory traffic cut out, and stop")
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -524,14 +738,24 @@ def main():
                 ptxas[name] = [ln.strip() for ln in fh
                                if "Used" in ln or "spill" in ln]
     emit("build", kernels={k: os.path.relpath(v) for k, v in libs.items()},
-         seconds=time.time() - t0, ptxas=ptxas)
+         seconds=time.time() - t0, ptxas=ptxas,
+         sass_instructions={k: sass_counts(v) for k, v in libs.items()})
     assert {"blake2b", "ntt"} <= set(libs), libs
+
+    if opts.b2_sweep or opts.b2_parts:
+        if opts.b2_sweep:
+            b2_sweep()
+        if opts.b2_parts:
+            b2_parts()
+        print(smi, flush=True)
+        return
 
     # 3. B1 against its plain version and hashlib at the prover's shapes
     b1 = check_b1()
 
     # 4. B2 / B3 against their plain versions; the composed transform
     # against the u64 network
+    check_b2_every_size()
     b2, b3 = check_ntt_kernels()
 
     # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
@@ -565,7 +789,11 @@ def main():
                      ("n", "W", "msg_len")),
         kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
-                     counts["b2"], b2, 1, ("rows", "m")),
+                     counts["b2"], b2,
+                     next(i for i, row in enumerate(b2)
+                          if (row["stage"], row["form"])
+                          == ("ext", "rows_transposed")),
+                     ("form", "rows", "m")),
         kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
                      counts["b3"], b3, 1, ("rows", "r", "c")),

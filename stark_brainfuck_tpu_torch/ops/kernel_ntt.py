@@ -1,26 +1,33 @@
 """Four-step Goldilocks NTT on kernels B2 and B3 (`ntt_backend="mxu"`).
 
-The counterpart of the JAX package's `ops/pallas_ntt.py`: the same plan
-geometry (`make_pallas_plan`) and the same four-step order (`ntt_pallas`),
-bit-identical to the u64 butterfly network of `ops/ntt.py`.
+The counterpart of the JAX package's `ops/pallas_ntt.py`: the same
+transform, bit-identical to the u64 butterfly network of `ops/ntt.py`. The
+four-step split (`plan_geometry`) and the order of its passes are the
+port's own, chosen for the card.
 
 The representation differs. The TPU kernels hold each element as 9
 balanced int8 limbs, plane-major, so that the radix-128/64 DFTs run as int8
 matrix products on the MXU and twiddles are limb convolutions
 (`ops/limb.py`, `ops/mxu_ntt.py`). Hopper multiplies 64-bit words natively,
 so the port's kernels take the canonical u64 words (int64 tensors, as
-everywhere in the port) and run radix-2 butterflies in shared memory; the
-limb modules have no counterpart here.
+everywhere in the port); the limb modules have no counterpart here.
 
-  - `subntt` (B2, `csrc/ntt.cu` `subntt_kernel`): an NTT of m <= 2^13
-    points along each row;
+  - `subntt_tiled` (B2, `csrc/ntt.cu` `subntt_kernel`): an NTT of
+    m <= 2^13 points of every vector of a strided batch, radix-8 Stockham
+    steps in registers and shared memory, stored under other strides if
+    asked; `subntt` is its contiguous-rows form;
   - `twiddle_outer` (B3, `twiddle_outer_kernel`): row g, column j times
     w^((g mod c)·j) from the factored hi/lo tables;
-  - `ntt_kernel`: the full n-point transform (n <= 2^26) composed of them.
+  - `ntt_kernel`: the full n-point transform (n <= 2^26) composed of them,
+    with the four-step transposes inside B2's own loads and stores.
+
+What the kernel's schedule needs from the host is here, in Python that
+the CPU tests reach: the step radices, the between-step twiddle table, the
+exponent kappa of the sub-root's 8th root, the tile shape.
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs its plain torch version (`subntt_plain`,
-`twiddle_outer_plain`); any other device raises.
+`subntt_tiled_plain`, `twiddle_outer_plain`); any other device raises.
 """
 
 from __future__ import annotations
@@ -35,8 +42,19 @@ from . import cuda_build
 from . import field as f
 from . import ntt as nt
 
-SUB_MAX = 1 << 13  # largest sub-transform: 64 KB of u64 words in shared memory
+SUB_MAX = 1 << 13  # largest sub-transform
 KERNEL_NTT_MAX = 1 << 26  # n = r·c with r, c <= SUB_MAX
+
+# B2's tile: a block holds 2^log_vo groups of 2^log_ti adjacent vectors in
+# shared memory, 8 words a thread, so at most 2^MAX_LOG_TILE words with its
+# 1,024 threads. LOG_TILE is the size aimed at (words, log2) and
+# LOG_TI_STRIDED the adjacent vectors wanted where a vector's elements are
+# strided in memory, so that every access still covers whole 32-byte
+# sectors. On the H100 the kernel's time is the same within 3 % from 2^11
+# to 2^13 words and for 4 or 8 adjacent vectors (`chip_smoke.py --b2-sweep`)
+LOG_TILE = 11
+MAX_LOG_TILE = 13
+LOG_TI_STRIDED = 3
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 LAUNCHES_SUBNTT = 0
@@ -45,16 +63,14 @@ LAUNCHES_TWIDDLE = 0
 
 class SubPlan(NamedTuple):
     """One m-point sub-transform: the radix-2 tables of `ops/ntt.py` (the
-    plain version's; the last stage's table, the m/2 powers of the
-    sub-root, is the kernel's) and the factor applied to every output."""
+    plain version's), the kernel's between-step twiddles and 8th-root
+    exponent, and the factor applied to every output."""
 
     m: int
     pack: nt.TwiddlePack
     scale: int  # 1, or n^-1 for the last sub-NTT of an inverse plan
-
-    @property
-    def twiddles(self) -> torch.Tensor:
-        return self.pack.stages[-1]
+    table: torch.Tensor  # `step_table(m, root)`
+    kappa: int  # `root_kappa(m, root)`
 
 
 class KernelNttPlan(NamedTuple):
@@ -67,17 +83,85 @@ class KernelNttPlan(NamedTuple):
     tw_lo: Optional[torch.Tensor]  # (128, r): w^(b_lo·j)
 
 
+class Strides(NamedTuple):
+    """Where a batch of vectors lies in a flat tensor, in words: element i
+    of vector v of batch b is at b·batch + v·vec + i·elem."""
+
+    batch: int
+    vec: int
+    elem: int
+
+
 def plan_geometry(n: int) -> Tuple[int, int]:
-    """(r, c) of `make_pallas_plan`: one sub-transform up to 2^13 points,
-    else r = 2^min(13, log n - 7) and c = n / r (a multiple of 128)."""
-    assert n >= 2 and n & (n - 1) == 0 and n <= KERNEL_NTT_MAX, n
+    """(r, c) with n = r·c: one sub-transform up to 2^13 points, else the
+    balanced split c = 2^max(7, floor(log n / 2)), r = n / c >= c. Both
+    sub-transforms then fit a block's shared memory several columns at a
+    time, and c >= 128 keeps B3's factored table."""
+    if n < 2 or n & (n - 1) or n > KERNEL_NTT_MAX:
+        raise ValueError(f"no kernel NTT plan for n = {n}")
     if n <= SUB_MAX:
         return n, 1
     logn = n.bit_length() - 1
-    r = 1 << min(13, logn - 7)
-    c = n // r
-    assert c <= SUB_MAX and c % 128 == 0, (n, r, c)
-    return r, c
+    c = 1 << max(7, logn // 2)
+    return n // c, c
+
+
+def step_radices(m: int):
+    """The radices of B2's Stockham steps for an m-point transform: the
+    radix-2 or radix-4 remainder first (its twiddles are the fewest), then
+    radix 8."""
+    log_m = m.bit_length() - 1
+    rem = log_m % 3
+    return ([1 << rem] if rem else []) + [8] * (log_m // 3)
+
+
+def step_table(m: int, root: int, device=None) -> torch.Tensor:
+    """B2's between-step twiddles. The step of radix R that splits
+    transforms of length n multiplies output j of butterfly p by
+    w_n^(p·j) = root^((m/n)·p·j). The kernel computes its DFTs with the
+    fixed root 2^24, so its register jr holds output j = jr / kappa mod R
+    (`root_kappa`): the step's rows are in register order, jr = 1..R-1,
+    n/R words each, one step after the other. The last step has none
+    (p = 0); the table keeps one word so that it is never empty."""
+    powers = f.powers(root, m)
+    kinv = pow(root_kappa(m, root), -1, 8)
+    chunks = []
+    n = m
+    for R in step_radices(m)[:-1]:
+        p = torch.arange(n // R, dtype=torch.int64)
+        j = (kinv * torch.arange(1, R, dtype=torch.int64)) % R
+        chunks.append(powers[(m // n) * j[:, None] * p[None, :]].reshape(-1))
+        n //= R
+    table = torch.cat(chunks) if chunks else torch.ones(1, dtype=torch.int64)
+    return table if device is None else table.to(device)
+
+
+def root_kappa(m: int, root: int) -> int:
+    """The odd kappa in 1..7 with root^(m/8) = 2^(24·kappa): in this field
+    2^96 = -1, so the 8th roots of unity are the powers of 2^24, and B2's
+    in-register DFTs multiply by shifts. Which primitive 8th root the
+    plan's sub-root gives is the plan's to say. For m = 4 the same with
+    root = 2^(48·kappa); for m = 2, 1."""
+    if m <= 2:
+        return 1
+    order = min(m, 8)
+    w = f.h_pow(root, m // order)
+    for kappa in range(1, order, 2):
+        if f.h_pow(2, 192 // order * kappa) == w:
+            return kappa
+    raise ValueError(f"{root} is not a primitive {m}-th root of unity")
+
+
+def tile_shape(m: int, strided: bool) -> Tuple[int, int]:
+    """(log_ti, log_vo) of B2's launch for m-point vectors: 2^log_ti
+    adjacent vectors interleaved in one group (more than one only where
+    `strided`: a vector's elements are not adjacent in memory, its
+    neighbours' are), 2^log_vo groups a block."""
+    log_m = m.bit_length() - 1
+    log_ti = max(0, min(LOG_TI_STRIDED, MAX_LOG_TILE - log_m)) if strided else 0
+    log_vo = max(0, min(LOG_TILE, MAX_LOG_TILE) - log_m - log_ti,
+                 6 - log_m - log_ti)
+    return log_ti, log_vo
 
 
 def twiddle_values(rows: int, cols: int, root: int, row_stride: int = 1,
@@ -101,7 +185,8 @@ def outer_tables(n: int, r: int, root: int, device=None):
 
 
 def _sub_plan(m: int, root: int, scale: int, device) -> SubPlan:
-    return SubPlan(m, nt._make_small_pack(m, root, False, device), scale)
+    return SubPlan(m, nt._make_small_pack(m, root, False, device), scale,
+                   step_table(m, root, device), root_kappa(m, root))
 
 
 def make_kernel_plan(n: int, root: int, inverse: bool = False,
@@ -117,8 +202,8 @@ def make_kernel_plan(n: int, root: int, inverse: bool = False,
     tw_hi, tw_lo = outer_tables(n, r, w, device)
     return KernelNttPlan(
         n, r, c,
-        _sub_plan(r, f.h_pow(w, c), 1, device),
-        _sub_plan(c, f.h_pow(w, r), scale, device),
+        _sub_plan(r, f.h_pow(w, c), scale, device),
+        _sub_plan(c, f.h_pow(w, r), 1, device),
         tw_hi, tw_lo,
     )
 
@@ -132,6 +217,22 @@ def subntt_plain(x, sub: SubPlan):
     """The radix-2 network of `ops/ntt.py` along each row, then the scale."""
     out = nt.ntt_with(x, sub.pack)
     return out if sub.scale == 1 else f.mul(out, f.const(sub.scale, out))
+
+
+def _strided_view(flat, batches: int, nvec: int, m: int, st: Strides):
+    return torch.as_strided(flat, (batches, nvec, m), tuple(st))
+
+
+def subntt_tiled_plain(x, sub: SubPlan, batches: int, nvec: int,
+                       src: Strides, dst: Strides):
+    """`subntt_plain` of the vectors that `src` describes in x, written
+    where `dst` says: two torch gathers around the radix-2 network."""
+    rows = _strided_view(x.reshape(-1), batches, nvec, sub.m, src)
+    res = subntt_plain(rows.reshape(-1, sub.m), sub)
+    out = torch.empty_like(x)
+    _strided_view(out.view(-1), batches, nvec, sub.m, dst).copy_(
+        res.reshape(batches, nvec, sub.m))
+    return out
 
 
 def twiddle_outer_plain(y, plan: KernelNttPlan):
@@ -152,11 +253,11 @@ def _kernel_lib():
     global _LIB
     if _LIB is None:
         lib = cuda_build.load("ntt")
-        lib.subntt_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
-            ctypes.c_void_p,
-        ]
+        lib.subntt_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+            + [ctypes.c_int] * 4 + [ctypes.c_ulonglong]
+            + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        )
         lib.twiddle_outer_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -188,17 +289,20 @@ def _launch(fn, x, args, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def _launch_subntt(x, sub: SubPlan):
+def _launch_subntt(x, sub: SubPlan, batches: int, nvec: int, src: Strides,
+                   dst: Strides):
     global LAUNCHES_SUBNTT
-    _on_card(x, sub.twiddles)
+    _on_card(x, sub.table)
     out = torch.empty_like(x)
-    rows = x.shape[0]
-    if rows == 0:
+    if x.numel() == 0:
         return out
+    log_ti, log_vo = tile_shape(sub.m, src.elem != 1 or dst.elem != 1)
+    kinv = pow(sub.kappa, -1, 8)
     _launch(
         _kernel_lib().subntt_launch, x,
-        (_ptr(x), _ptr(out), _ptr(sub.twiddles), rows,
-         sub.m.bit_length() - 1, sub.scale),
+        (_ptr(x), _ptr(out), _ptr(sub.table), batches, nvec,
+         sub.m.bit_length() - 1, log_ti, log_vo, kinv, sub.scale,
+         *src, *dst),
         "subntt",
     )
     LAUNCHES_SUBNTT += 1
@@ -227,13 +331,40 @@ def _check(x, width: int, what: str):
         raise ValueError(f"{what} takes a 2-D int64 tensor of width {width}")
 
 
+def subntt_tiled(x, sub: SubPlan, batches: int, nvec: int, src: Strides,
+                 dst: Strides):
+    """NTT of batches·nvec vectors of m words with the sub-plan's root,
+    times its scale. x is a contiguous int64 tensor of batches·nvec·m
+    words; `src` says where each vector lies in it and `dst` where its
+    transform goes in the result, a new tensor of x's shape (every word of
+    which `dst` must cover). A CUDA tensor runs kernel B2 (or raises); a CPU
+    tensor runs `subntt_tiled_plain`."""
+    if x.dtype != torch.int64 or not x.is_contiguous():
+        raise ValueError("subntt_tiled takes a contiguous int64 tensor")
+    if batches < 0 or nvec < 0 or x.numel() != batches * nvec * sub.m:
+        raise ValueError(
+            f"subntt_tiled: {x.numel()} words are not {batches} x {nvec} "
+            f"vectors of {sub.m}")
+    for st in (src, dst):
+        last = ((batches - 1) * st.batch + (nvec - 1) * st.vec
+                + (sub.m - 1) * st.elem)
+        if min(st) < 0 or (x.numel() and last >= x.numel()):
+            raise ValueError(f"subntt_tiled: {st} leaves the tensor")
+    if x.is_cuda:
+        return _launch_subntt(x, sub, batches, nvec, src, dst)
+    if x.device.type == "cpu":
+        return subntt_tiled_plain(x, sub, batches, nvec, src, dst)
+    raise ValueError(f"no sub-NTT path for device {x.device}")
+
+
 def subntt(x, sub: SubPlan):
     """NTT of each row of x (rows, m) int64 with the sub-plan's root, times
     its scale; a new tensor. A CUDA tensor runs kernel B2 (or raises); a CPU
     tensor runs `subntt_plain`."""
     _check(x, sub.m, "subntt")
     if x.is_cuda:
-        return _launch_subntt(x, sub)
+        rows = Strides(0, sub.m, 1)
+        return subntt_tiled(x, sub, 1, x.shape[0], rows, rows)
     if x.device.type == "cpu":
         return subntt_plain(x, sub)
     raise ValueError(f"no sub-NTT path for device {x.device}")
@@ -262,23 +393,23 @@ def ntt_kernel(values, plan: KernelNttPlan):
     """int64 rows (..., n) -> (..., n): out[k] = Σ_j v[j]·root^(jk), scaled
     by n^-1 for inverse plans (the contract of `ops/ntt.ntt_with`).
 
-    With j = a·c + b the rows are transposed to (B·c, r), transformed over
-    a with root w^c (B2), twiddled by w^(b·k1) (B3), transposed to (B·r, c)
-    and transformed over b with root w^r (B2); out[k1 + r·k2] is read back
-    by a last transpose. The transposes are torch copies."""
+    With j = b·r + a and k = k1·c + k2, B2 transforms each row's (c, r)
+    view down its columns (over b, root w^r), in place of layout: y[k2, a];
+    B3 twiddles by w^(k2·a); B2 transforms the rows (over a, root w^c) and
+    stores z[k2, k1] transposed, which is the output. The kernel reads and
+    writes the strided views itself, a few adjacent columns a block: no
+    torch copy of the block of rows is made."""
     n = values.shape[-1]
-    assert n == plan.n, (n, plan.n)
+    if n != plan.n:
+        raise ValueError(f"ntt_kernel: width {n}, plan for {plan.n}")
     shape = values.shape
-    v = values.reshape(-1, n)
+    v = values.reshape(-1, n).contiguous()
     B = v.shape[0]
     if plan.sub_c is None:
-        return subntt(v.contiguous(), plan.sub_r).reshape(shape)
+        return subntt(v, plan.sub_r).reshape(shape)
     r, c = plan.r, plan.c
-    y = v.reshape(B, r, c).transpose(1, 2).contiguous().reshape(B * c, r)
-    y = subntt(y, plan.sub_r)
-    y = twiddle_outer(y, plan)
-    z = y.reshape(B, c, r).transpose(1, 2).contiguous().reshape(B * r, c)
-    del y
-    z = subntt(z, plan.sub_c)
-    out = z.reshape(B, r, c).transpose(1, 2).contiguous()
+    columns = Strides(n, 1, r)
+    y = subntt_tiled(v, plan.sub_c, B, r, columns, columns)
+    y = twiddle_outer(y.view(B * c, r), plan)
+    out = subntt_tiled(y, plan.sub_r, B, c, Strides(n, r, 1), Strides(n, 1, c))
     return out.reshape(shape)

@@ -84,6 +84,26 @@ def test_ragged_batch_and_wrapper_checks():
     assert B.LAUNCHES == 0, "the CPU path must not count kernel launches"
 
 
+@pytest.mark.parametrize("W,msg_len", [
+    (16, 1), (16, 127), (32, 129), (32, 256), (64, 512), (64, 385),
+])
+def test_plain_blake2b_block_boundaries(W, msg_len):
+    """Messages that just fill, or just spill into, their last block."""
+    words = _make_words(128, W, msg_len, W + msg_len)
+    got = U(B.blake2b_words(T(words), msg_len))
+    assert np.array_equal(got, _jax_kernel_body(words, msg_len))
+    for i in (0, 57, 127):
+        want = hashlib.blake2b(words[i].astype("<u8").tobytes()[:msg_len]).digest()
+        assert got[i].astype("<u8").tobytes() == want
+
+
+@pytest.mark.parametrize("W,msg_len", [(0, 0), (8, 64), (24, 100), (16, 0),
+                                       (16, 129), (32, 128), (48, 256)])
+def test_wrapper_rejects_bad_shapes(W, msg_len):
+    with pytest.raises(ValueError):
+        B.blake2b_words(torch.zeros((4, W), dtype=torch.int64), msg_len)
+
+
 def _jax_salts_as_words(key, n):
     s = jdm.salt_words(key, n, np).astype(np.uint64)  # (n, 6) u32 words
     return s[:, 0::2] | (s[:, 1::2] << np.uint64(32))
@@ -147,7 +167,9 @@ def test_cuda_kernel_matches_plain_version():
     """On the card: kernel B1 against the plain torch version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel B1 has no CPU mode)")
-    for n, W, msg_len in SHAPES + [(1000, 48, 337)]:
+    # every kernel variant, full and ragged blocks of 128 messages
+    for n, W, msg_len in SHAPES + [(1000, 48, 337), (1000, 16, 128),
+                                   (1, 32, 240), (129, 32, 129)]:
         words = T(_make_words(n, W, msg_len, 3), "cuda")
         assert torch.equal(
             B.blake2b_words(words, msg_len), B.blake2b_words_plain(words, msg_len)
