@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
+                          [--stream-log2-cycles K]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
@@ -30,13 +31,33 @@ line each; any failure raises and exits non-zero:
      each, then two timed proves each, in turns, every one with its kernel
      launch counts, stage times and peak device memory at each stage mark;
      all proofs byte-identical;
-  7. the kernels line, then the card's name and power limit;
-  8. last line: {"ok": true, "device": {...}}.
+  7. the streamed prover (FRI domains >= `stream_min`, strided classes):
+     stream_bytes: the N=16384 program with `stream_min=1,
+     stream_classes=4` on cuda and on cpu, on both NTT paths, every proof
+     equal to the resident one of step 5; stream_checkpoint: the same with
+     a `checkpoint_dir`, whose second prove resumes both commit stages to
+     the same bytes; stream_kernels: B1 against its plain version at the
+     streamed shapes (S = 2^17 messages: both leaf widths, the salt PRF, a
+     pair combine; the ladder's levels of 2^16 and 1,024 parents; the 2^22
+     leaves and pair messages of the combination's tree), B2 and B3 against
+     their plain versions in the launches of the size-S class transform
+     (c = 256, r = 512; 19 and 27 rows), and `block_values` on B2/B3
+     against the u64 network at (19, S) and (27, S), all exactly;
+     stream_prove: a counter of 2^16 cycles
+     (FRI 2^22, which the default `stream_min` sends down the streamed
+     path) proved resident (`stream_min` = 2^23) and streamed with 32 and
+     with 2 classes, each on both NTT paths, all bytes equal, with launch
+     counts, stage times and peak memory per prove;
+  8. the card's name and power limit, then the kernels line;
+  9. last line: {"ok": true, "device": {...}}.
 
 `--b2-sweep` and `--b2-parts` are measuring aids for kernel B2: after the
 build they time it under several tile shapes, or with its arithmetic or
 its memory traffic cut out of the source, print one JSON line each and
-stop before the checks.
+stop before the checks. `--stream-log2-cycles K` is the same kind of aid
+for the streamed prover: after the build it proves a counter of 2^K cycles
+(FRI 2^(K+6)) with 32 classes on both NTT paths, holds the two proofs equal
+and verified, prints one stream_prove line each and stops.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -48,6 +69,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -87,6 +109,12 @@ LOG2_FRI = 21
 # rows of the full-size prove's two forward LDE NTTs: 3 randomizer + 16
 # base columns, and 3 x 9 extension columns
 NTT_ROWS = {"base": 19, "ext": 27}
+
+# the streamed prove: 2^16 cycles, FRI 2^22 = the default stream_min, in the
+# default 32 classes (S = 2^17) and in 2 (S = 2^21)
+STREAM_LOG2_CYCLES = 16
+STREAM_CLASSES = (32, 2)
+STREAM_S = (1 << (STREAM_LOG2_CYCLES + 6)) // STREAM_CLASSES[0]
 
 # (n, W words, msg_len bytes) of the prover's BLAKE2b calls at FRI 2^21:
 # Merkle parents, salt/randomizer PRF, base leaf (19+3 words), ext leaf
@@ -541,11 +569,14 @@ def counter_program(target_cycles: int) -> str:
     return "+" * lo + inner
 
 
-def make_stark(src: str, seed: int, device, **config):
+def make_stark(src: str, seed: int, device, trace=None, **config):
+    """(stark, prove arguments) for a program without input; `trace`, the
+    program's recorded run, spares simulating it again."""
     from stark_brainfuck_tpu_torch import BrainfuckStark, StarkConfig, VirtualMachine
 
     program = VirtualMachine.compile(src)
-    trace = VirtualMachine.simulate(program)
+    if trace is None:
+        trace = VirtualMachine.simulate(program)
     bfs = BrainfuckStark(
         trace["processor"].shape[0], trace["memory"].shape[0], program, "",
         trace["output_data"], StarkConfig(seed=seed, **config), device=device,
@@ -682,9 +713,247 @@ def bytes_across_devices(phase, src, want=None, **config):
     return proof_gpu, counts
 
 
-def kernel_entry(name, source, replaces, launches, rows, main, at):
+STREAM_SRC = "+" * 8 + "[->++++[-]<]"
+STREAM_SMALL = {"stream_min": 1, "stream_classes": 4}
+
+
+def stream_bytes(want):
+    """The N=16384 program down the streamed path (4 classes): cuda and cpu,
+    both NTT paths, every proof equal to the resident proof `want`."""
+    for backend in ("auto", "mxu"):
+        config = {**STREAM_SMALL, "ntt_backend": backend}
+        bfs_gpu, args = make_stark(STREAM_SRC, 7, "cuda", **config)
+        reset_counts()
+        proof_gpu = bfs_gpu.prove(*args)
+        counts = read_counts()
+        bfs_cpu, _ = make_stark(STREAM_SRC, 7, "cpu", **config)
+        proof_cpu = bfs_cpu.prove(*args)
+        assert bfs_gpu.use_stream and bfs_cpu.use_stream
+        assert proof_gpu == proof_cpu, "stream_bytes: cuda and cpu differ"
+        assert proof_gpu == want, "stream_bytes: streamed and resident differ"
+        assert bfs_gpu.verify(proof_gpu), bfs_gpu.last_rejection
+        # S = 4096 is one sub-transform: a B2 launch and no B3 for each of
+        # the 6 class transforms of each of the 4 classes
+        assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
+            (24, 0) if backend == "mxu" else (0, 0)), counts
+        emit("stream_bytes", ntt_backend=backend,
+             fri_domain=bfs_gpu.fri.domain.length,
+             classes=bfs_gpu.last_metrics["stream_classes"],
+             block=bfs_gpu.last_metrics["stream_block"],
+             ntt_path=[bfs_gpu.last_metrics["ntt_path"],
+                       bfs_cpu.last_metrics["ntt_path"]],
+             identical=True, identical_to_resident=True, verified=True,
+             launches=counts)
+
+
+def stream_checkpoint(want):
+    """Stage checkpoints on the card: the second seeded prove of a claim
+    resumes both streamed commit passes and gives the same bytes."""
+    with tempfile.TemporaryDirectory() as cdir:
+        resumes, launches = [], []
+        for _ in range(2):
+            bfs, args = make_stark(STREAM_SRC, 7, "cuda", **STREAM_SMALL,
+                                   checkpoint_dir=cdir)
+            reset_counts()
+            proof = bfs.prove(*args)
+            launches.append(read_counts()["b1"])
+            assert proof == want, "stream_checkpoint: bytes differ"
+            resumes.append(list(bfs.last_commit_resumes))
+        files = sorted(name.split("_")[-1] for name in os.listdir(cdir))
+    assert resumes == [[], ["base", "ext"]], resumes
+    assert files == ["base.npz", "ext.npz"], files
+    assert launches[1] < launches[0], launches
+    emit("stream_checkpoint", resumes=resumes, files=files,
+         b1_launches=launches, identical=True)
+
+
+def stream_kernels():
+    """The kernels at the streamed prove's shapes (FRI 2^22 in 32 classes of
+    S = 2^17). B1 against its plain version: a class's two leaf widths, its
+    salt PRF and a pair combine at S messages, two levels of the ladder
+    (`merkle_parents` to 2^16 and to 1,024 parents), and the 2^22 leaves
+    and 128-byte messages of the combination's tree. B2 and B3 against
+    their plain versions in the launches of the size-S class transform:
+    the column pass, the row pass with its transposed store, and the outer
+    twiddle, for the 19 base and the 27 extension rows. Then `block_values`
+    on B2/B3 against the u64 network for both groups. Exact, or it
+    raises."""
+    from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.protocol import stream
+
+    S = STREAM_S
+    N = S * STREAM_CLASSES[0]
+    b1_cases = [(S, 32, 176, "leaf"), (S, 32, 240, "leaf"),
+                (S, 16, 24, "salt"), (S, 16, 128, "pair"),
+                (S // 2, 16, 128, "ladder"), (1024, 16, 128, "ladder"),
+                (N, 16, 24, "leaf"), (N, 16, 128, "parents")]
+    for k, (n, W, msg_len, use) in enumerate(b1_cases):
+        words = random_messages(n, W, msg_len, seed=40 + k)
+        if use == "pair":
+            left, right = words[:, :8].contiguous(), words[:, 8:].contiguous()
+            run = lambda: B.merkle_parents_pair(left, right)
+        elif use == "ladder":
+            children = words.reshape(2 * n, 8)
+            run = lambda: B.merkle_parents(children)
+        else:
+            run = lambda: B.blake2b_words(words, msg_len)
+        reset_counts()
+        got = run()
+        assert read_counts()["b1"] == 1, (use, read_counts())
+        plain = B.blake2b_words_plain(words, msg_len)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        assert err == 0.0, f"B1 differs from plain torch at {(n, W, msg_len)}"
+        bound_ms, bound_by = bound((W * 8 + 64) * n,
+                                   n * (W // 16) * OPS_PER_COMPRESSION)
+        emit("stream_kernels", kernel="blake2b_words", n=n, W=W,
+             msg_len=msg_len, use=use, max_abs_err=err,
+             ms=cuda_ms(run, reps=20),
+             plain_ms=cuda_ms(
+                 lambda: B.blake2b_words_plain(words, msg_len), reps=3),
+             bound_ms=bound_ms, bound_by=bound_by)
+        del words, got, plain
+    omega = f.primitive_nth_root(N)
+    plans = {kernel: stream.make_stream_plan(N, STREAM_CLASSES[0], omega,
+                                             "cuda", kernel_ntt=kernel)
+             for kernel in (False, True)}
+    plan = plans[True]["pack_S"]
+    assert (plan.n, plan.r, plan.c) == (S, 512, 256), (plan.r, plan.c)
+    for stage, rows in NTT_ROWS.items():
+        x = random_field(rows, S, 50 + rows)
+        for form, sub, batches, nvec, src, dst in b2_forms(plan, rows)[:2]:
+            run = lambda: K.subntt_tiled(x, sub, batches, nvec, src, dst)
+            run_plain = lambda: K.subntt_tiled_plain(
+                x, sub, batches, nvec, src, dst)
+            err = max_abs_err(run(), run_plain())
+            assert err == 0.0, f"B2 differs from plain torch at {(form, stage)}"
+            bound_ms, bound_by = bound(
+                16 * rows * S + 8 * sub.table.numel(),
+                batches * nvec * subntt_ops(sub.m))
+            emit("stream_kernels", kernel="subntt", stage=stage, form=form,
+                 rows=batches * nvec, m=sub.m, tile=K.tile_shape(sub.m, True),
+                 max_abs_err=err, ms=cuda_ms(run, reps=20),
+                 plain_ms=cuda_ms(run_plain, reps=3), bound_ms=bound_ms,
+                 bound_by=bound_by)
+        y = x.reshape(rows * plan.c, plan.r)
+        err = max_abs_err(K.twiddle_outer(y, plan),
+                          K.twiddle_outer_plain(y, plan))
+        assert err == 0.0, f"B3 differs from plain torch at {tuple(y.shape)}"
+        bound_ms, bound_by = bound(
+            16 * rows * S + 8 * (128 + plan.c // 128) * plan.r,
+            2 * GL_MUL_OPS * rows * S)
+        emit("stream_kernels", kernel="twiddle_outer", stage=stage,
+             rows=rows * plan.c, r=plan.r, c=plan.c, hi_rows=plan.c // 128,
+             max_abs_err=err,
+             ms=cuda_ms(lambda: K.twiddle_outer(y, plan), reps=20),
+             plain_ms=cuda_ms(lambda: K.twiddle_outer_plain(y, plan), reps=3),
+             bound_ms=bound_ms, bound_by=bound_by)
+        del x, y
+    wb = f.powers(omega, 4, "cuda")[3:4]
+    for stage, rows in NTT_ROWS.items():
+        # the prove's groups: 3 randomizer rows of N/4 coefficients, the
+        # rest table columns of height + 1 (one randomizer)
+        groups = (random_field(3, N // 4, 60 + rows),
+                  random_field(rows - 3, (N >> 6) + 1, 61 + rows))
+        run = {kernel: (lambda plan=plan: stream.block_values(
+            groups, wb, N // 4, plan["pack_S"], S))
+            for kernel, plan in plans.items()}
+        reset_counts()
+        got = run[True]()
+        counts = read_counts()
+        want = run[False]()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        assert err == 0.0, f"block_values on B2/B3 differs at {(rows, S)}"
+        assert (counts["b2"], counts["b3"]) == (2, 1), counts
+        del got, want
+        # the class transform alone (B2, B3, B2 against the u64 network):
+        # the rest of `block_values` is the scale row and the fold
+        folded = random_field(rows, S, 62 + rows)
+        emit("stream_kernels", kernel="block_values", stage=stage, rows=rows,
+             S=S, r=plan.r, c=plan.c, max_abs_err=err,
+             kernel_ms=cuda_ms(run[True], reps=10),
+             u64_ms=cuda_ms(run[False], reps=3),
+             transform_kernel_ms=cuda_ms(
+                 lambda: K.forward_ntt(folded, plan), reps=20),
+             transform_u64_ms=cuda_ms(
+                 lambda: K.forward_ntt(folded, plans[False]["pack_S"]),
+                 reps=3))
+        del groups, folded
+
+
+def stream_plans(classes, backends=("auto", "mxu")):
+    """(kind, config) of a streamed prove for each class count and NTT
+    backend."""
+    return [("streamed", {"stream_classes": B, "ntt_backend": nb})
+            for B in classes for nb in backends]
+
+
+def stream_proves(log2_cycles, smi, plans):
+    """A counter of 2^log2_cycles cycles proved once for each (kind, config)
+    of `plans`: "streamed", or "resident", the same claim with `stream_min`
+    raised past its domain.
+    Each with the launch counts set to 0 just before it and read just
+    after, stage times and peak bytes. All proofs must be equal and the
+    first must verify. Returns the runs."""
+    from stark_brainfuck_tpu_torch import VirtualMachine
+
+    src = counter_program(1 << log2_cycles)
+    trace = VirtualMachine.simulate(VirtualMachine.compile(src))
+    cycles = int(trace["processor"].shape[0])
+    proof, runs = None, []
+    for kind, config in plans:
+        if kind == "resident":
+            config = {**config, "stream_min": 1 << (log2_cycles + 7)}
+        bfs, args = make_stark(src, 0, "cuda", trace=trace, **config)
+        assert bfs.use_stream == (kind != "resident"), (kind, config)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = bfs.prove(*args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        if proof is None:
+            proof = got
+            assert bfs.verify(got), f"stream_prove: {bfs.last_rejection}"
+        assert got == proof, f"stream_prove: bytes differ at {(kind, config)}"
+        m = bfs.last_metrics
+        mxu = config.get("ntt_backend") == "mxu"
+        if kind != "resident":
+            # 6 class transforms a class: one a group in the two commit
+            # passes, the combination and the reopen; each 2 B2 and 1 B3
+            transforms = 6 * m["stream_classes"] if mxu else 0
+            assert (counts["b2"], counts["b3"]) == (
+                2 * transforms, transforms), counts
+        else:
+            assert (counts["b2"], counts["b3"]) == (0, 0), counts
+        run = {"kind": kind, "ntt_backend": config.get("ntt_backend", "auto"),
+               "ntt_path": m["ntt_path"], "classes": m["stream_classes"],
+               "block": m["stream_block"], "trace_cycles": cycles,
+               "fri_domain": m["fri_domain"], "prove_s": wall,
+               "cycles_per_s": cycles / wall, "launches": counts,
+               "stages_s": m["stages_s"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "peak_bytes_at_mark": m["peak_bytes_at_mark"],
+               "proof_bytes": len(got), "identical": True,
+               "verified": True, "nvidia_smi": smi}
+        emit("stream_prove", **run)
+        runs.append(run)
+        del bfs, args, got
+    return runs
+
+
+def kernel_entry(name, source, replaces, launches, launches_streamed, rows,
+                 main, at):
     """One row of the kernels line: ms, plain_ms and bound at the main
-    shape `rows[main]`, the largest error over every checked shape."""
+    shape `rows[main]`, the largest error over every checked shape;
+    `launches` of the resident full-size prove and `launches_streamed` of
+    the streamed one (32 classes)."""
     main_shape = rows[main]
     return {
         "name": name,
@@ -692,6 +961,7 @@ def kernel_entry(name, source, replaces, launches, rows, main, at):
         "source": source,
         "replaces": replaces,
         "launches": launches,
+        "launches_streamed": launches_streamed,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -713,7 +983,14 @@ def main():
     ap.add_argument("--b2-parts", action="store_true",
                     help="after the build, time kernel B2 with its arithmetic "
                          "or its memory traffic cut out, and stop")
+    ap.add_argument("--stream-log2-cycles", type=int, metavar="K",
+                    help="after the build, prove a counter of 2^K cycles down "
+                         "the streamed path (32 classes, both NTT paths), "
+                         "and stop")
     opts = ap.parse_args()
+    if opts.stream_log2_cycles and not 16 <= opts.stream_log2_cycles <= 20:
+        ap.error("--stream-log2-cycles takes 16..20: FRI 2^22 (the default "
+                 "stream_min) to 2^26 (the largest domain)")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -742,11 +1019,14 @@ def main():
          sass_instructions={k: sass_counts(v) for k, v in libs.items()})
     assert {"blake2b", "ntt"} <= set(libs), libs
 
-    if opts.b2_sweep or opts.b2_parts:
+    if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
         if opts.b2_sweep:
             b2_sweep()
         if opts.b2_parts:
             b2_parts()
+        if opts.stream_log2_cycles:
+            stream_proves(opts.stream_log2_cycles, smi,
+                          stream_plans(STREAM_CLASSES[:1]))
         print(smi, flush=True)
         return
 
@@ -778,25 +1058,41 @@ def main():
     if opts.profile:
         profile_prove(*starks["full_prove"], opts.profile)
     counts = launches["full_prove_mxu"][0]
+    del starks
 
-    # 7. kernels line (ms at the prover's largest shape of each kernel)
+    # 7. the streamed prover: bytes, checkpoints, kernels at its shapes,
+    # and the FRI 2^22 prove through the default stream_min
+    stream_bytes(proof_small)
+    stream_checkpoint(proof_small)
+    stream_kernels()
+    runs = stream_proves(STREAM_LOG2_CYCLES, smi,
+                         [("resident", {})] + stream_plans(STREAM_CLASSES))
+    assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
+    for run in runs[1:]:
+        assert run["launches"]["b1"] > runs[0]["launches"]["b1"], run
+    streamed = {"b1": runs[1]["launches"]["b1"], **{
+        k: runs[2]["launches"][k] for k in ("b2", "b3")}}
+    assert min(streamed.values()) > 0, streamed
+
+    # 8. kernels line (ms at the prover's largest shape of each kernel)
     # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
     # extension rows)
     kernels = [
         kernel_entry("blake2b_words", "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
                      "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
-                     launches["full_prove"][0]["b1"], b1, 3,
+                     launches["full_prove"][0]["b1"], streamed["b1"], b1, 3,
                      ("n", "W", "msg_len")),
         kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
-                     counts["b2"], b2,
+                     counts["b2"], streamed["b2"], b2,
                      next(i for i, row in enumerate(b2)
                           if (row["stage"], row["form"])
                           == ("ext", "rows_transposed")),
                      ("form", "rows", "m")),
         kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
-                     counts["b3"], b3, 1, ("rows", "r", "c")),
+                     counts["b3"], streamed["b3"], b3, 1,
+                     ("rows", "r", "c")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

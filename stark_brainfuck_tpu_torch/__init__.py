@@ -5,8 +5,9 @@ The port of the JAX package `stark_brainfuck_tpu` to one NVIDIA GPU: the
 same modules under the same names (ops/, models/, protocol/, vm/, utils/),
 int64 tensors holding u64 bits in place of u64 arrays, and a hand-written
 Hopper kernel for each TPU kernel on the path (csrc/). Seeded proofs are
-byte-identical to the JAX package's. This slice runs the resident,
-single-device, native-codec prover; see ROADMAP.md for what is still to come.
+byte-identical to the JAX package's. It runs the single-device,
+native-codec prover, resident and (from `stream_min` up) streamed; see
+ROADMAP.md for what is still to come.
 """
 
 from .config import StarkConfig

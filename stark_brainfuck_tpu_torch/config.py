@@ -2,8 +2,10 @@
 
 The same fields as the JAX package's `StarkConfig`, so a configuration
 carries across unchanged (`convert.config_from_fields`). This package runs
-the resident, single-device, native-codec prover; each option outside that
-path raises `NotImplementedError` naming the ROADMAP item that will bring it.
+the single-device, native-codec prover, resident below `stream_min` and
+streamed from it up; each option outside that (a mesh, the reference codec,
+the degree checks) raises `NotImplementedError` naming the ROADMAP item that
+will bring it.
 """
 
 from __future__ import annotations
@@ -38,11 +40,14 @@ class StarkConfig:
     # FRI rounds whose codeword is shorter than this finish on the host
     fri_host_min: int = 1 << 14
 
-    # FRI domains >= stream_min need the streamed prover (not ported yet)
+    # FRI domains >= stream_min take the streamed prover: codewords are
+    # evaluated and committed in `stream_classes` strided classes and never
+    # held whole (protocol/stream.py)
     stream_min: int = 1 << 22
     stream_classes: int = 32
 
-    # stage checkpoints belong to the streamed prover (not ported yet)
+    # where seeded streamed proves keep their stage checkpoints
+    # (utils/checkpoint.py); None keeps none
     checkpoint_dir: Optional[str] = None
 
     # forward-LDE NTT: "auto" and "u64" run the u64 butterfly network (as
@@ -84,23 +89,8 @@ class StarkConfig:
             raise ValueError(f"unknown codec {self.codec!r}")
         if self.ntt_backend not in ("auto", "u64", "mxu"):
             raise ValueError(f"unknown ntt_backend {self.ntt_backend!r}")
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: stage checkpoints belong to the streamed "
-                "prover, ROADMAP Queue A item 7"
-            )
         if self.debug_degree_checks:
             raise NotImplementedError(
                 "debug_degree_checks: ROADMAP Queue A item 10"
             )
         return self
-
-    def check_domain(self, fri_domain_length: int):
-        """The resident prover holds whole codewords; larger domains need
-        the streamed prover."""
-        if fri_domain_length >= self.stream_min:
-            raise NotImplementedError(
-                f"FRI domain {fri_domain_length} >= stream_min "
-                f"{self.stream_min}: the streamed prover is ROADMAP Queue A "
-                "item 7"
-            )

@@ -37,6 +37,31 @@ def tensor_to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
+def digest_planes_to_words(lo, hi, device=None) -> torch.Tensor:
+    """The JAX package's digest form, two (n, 8) u32 planes of low and high
+    halves, -> this package's (n, 8) int64 digest words."""
+    lo = np.asarray(lo, dtype=np.uint64)
+    hi = np.asarray(hi, dtype=np.uint64)
+    return u64_to_tensor(lo | (hi << np.uint64(32)), device)
+
+
+def digest_words_to_planes(words: torch.Tensor):
+    """(n, 8) int64 digest words -> the (lo, hi) u32 planes of the JAX
+    package."""
+    w = tensor_to_u64(words)
+    return (
+        (w & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        (w >> np.uint64(32)).astype(np.uint32),
+    )
+
+
+def groups_to_tensors(groups, device=None):
+    """Coefficient groups of the streamed prover (u64 arrays, as the JAX
+    package holds them) -> the tuple of int64 tensors `protocol/stream.py`
+    takes, so both packages build their trees from the same groups."""
+    return tuple(u64_to_tensor(np.asarray(g), device) for g in groups)
+
+
 def trace_to_tensors(trace: Dict, device=None) -> Dict[str, torch.Tensor]:
     """The five matrices of `VirtualMachine.simulate` as int64 tensors."""
     return {

@@ -183,6 +183,14 @@ def merkle_parents(d):
     return blake2b_words(d.reshape(n, 16).contiguous(), 128)
 
 
+def merkle_parents_pair(left, right):
+    """Elementwise Merkle combine of two digest arrays: parent[m] =
+    blake2b(left[m] ‖ right[m]), left and right (K, 8). The streamed tree
+    accumulator's combine, where sibling digests live in two class arrays
+    and not interleaved in heap order."""
+    return blake2b_words(torch.cat([left, right], dim=1), 128)
+
+
 def digests_to_bytes(d) -> bytes:
     """(N, 8) int64 digest words -> concatenated 64-byte digests."""
     from ..convert import tensor_to_u64

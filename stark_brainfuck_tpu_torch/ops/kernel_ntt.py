@@ -413,3 +413,14 @@ def ntt_kernel(values, plan: KernelNttPlan):
     y = twiddle_outer(y.view(B * c, r), plan)
     out = subntt_tiled(y, plan.sub_r, B, c, Strides(n, r, 1), Strides(n, 1, c))
     return out.reshape(shape)
+
+
+def forward_ntt(values, pack):
+    """The forward NTT along the last axis with whichever tables the caller
+    resolved: a `KernelNttPlan` runs the four-step transform on B2/B3, a
+    pack of `ops/ntt.py` the u64 butterfly network. Bit-identical. Both LDE
+    stages of the resident prover and every class transform of the streamed
+    one go through here."""
+    if isinstance(pack, KernelNttPlan):
+        return ntt_kernel(values, pack)
+    return nt.ntt_with(values, pack)

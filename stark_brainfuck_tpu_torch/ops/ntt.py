@@ -214,11 +214,21 @@ def _randomized_coefficients(trace, randomizers, intt_pack):
     return coeffs
 
 
+def lde_coefficients_unpadded(trace, randomizers, intt_pack, scale):
+    """Coset-scaled coefficient rows of the randomized LDE at their natural
+    length H (+R): the persistent per-row state of the streamed prover,
+    which evaluates them class by class instead of through one padded
+    full-domain NTT."""
+    coeffs = _randomized_coefficients(trace, randomizers, intt_pack)
+    return f.mul(coeffs, scale[: coeffs.shape[-1]])
+
+
 def lde_coefficients(trace, randomizers, intt_pack, scale, length: int):
     """Coset-scaled, zero-padded coefficient rows of the randomized LDE,
     ready to batch into one shared forward NTT across tables."""
-    coeffs = _randomized_coefficients(trace, randomizers, intt_pack)
-    return _pad_to(f.mul(coeffs, scale[: coeffs.shape[-1]]), length)
+    return _pad_to(
+        lde_coefficients_unpadded(trace, randomizers, intt_pack, scale), length
+    )
 
 
 def lde_columns_with(trace, randomizers, intt_pack, scale, fwd_pack,

@@ -14,6 +14,12 @@ The tree is built where the codewords live:
     opened paths cross to the host; `prefetch_trees` gathers a query set for
     several trees in one pass.
 
+The JAX package builds trees of 2^22 leaves and more in chunks
+(`BUILD_CHUNK`, there and in its FRI rounds), against the temporaries of
+its compiled hash graph. The port has no counterpart: B1 reads the message
+tensor and writes the digests, nothing else, and a 2^26-leaf tree was built
+whole on an 80 GB card (PERF.md).
+
 Salt words are (n, 3) int64 (the first three digest words of the salt PRF);
 their LE bytes are the 24-byte salt, identical to the JAX package's (n, 6)
 u32 layout. Tree shape matches ref merkle.py / salted_merkle.py.
@@ -86,10 +92,17 @@ def _prf_messages(key, ctr):
     return msg
 
 
-def salt_words_device(key, n: int, device=None):
+def salt_words_device(key, n: int, device=None, indices=None):
     """(n, 3) int64 salt words: salt_i = blake2b(key16 ‖ LE64(i))[:24].
-    key: (2,) int64 tensor of the two LE u64 key words."""
-    ctr = torch.arange(n, dtype=torch.int64, device=device or key.device)
+    key: (2,) int64 tensor of the two LE u64 key words. `indices` ((n,)
+    int64 leaf indices) takes the place of the counter 0..n-1: a streamed
+    commit's class covers the strided index set b + B·q."""
+    if indices is None:
+        ctr = torch.arange(n, dtype=torch.int64, device=device or key.device)
+    else:
+        if indices.dtype != torch.int64 or tuple(indices.shape) != (n,):
+            raise ValueError("salt indices must be an (n,) int64 tensor")
+        ctr = indices
     return B.blake2b_words(_prf_messages(key, ctr), 24)[:, :3].contiguous()
 
 

@@ -3,8 +3,8 @@
 Protocol flow and transcript order match ref `brainfuck_stark.py:20-579`
 (base commit → challenges → extend → ext commit → quotients → terminals →
 weights → combination commit → indices → openings → FRI), and a seeded
-proof is byte-identical to the JAX package's. This is the resident,
-single-device, native-codec prover:
+proof is byte-identical to the JAX package's. This is the single-device,
+native-codec prover:
 
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
@@ -13,6 +13,10 @@ single-device, native-codec prover:
     is the four-step transform on kernels B2/B3 (`ops/kernel_ntt.py`);
   - from `device_commit_min` up, every commitment is a device Merkle tree
     hashed by kernel B1; below it the trees are built on the host;
+  - from FRI domains of `stream_min` up the prover is streamed: whole base
+    and extension codewords never exist, only their coefficient rows;
+    commitments, the combination and the openings are computed per strided
+    class (`protocol/stream.py`), with the same transcript bytes;
   - the verifier recomputes the quotients with the same constraint
     builders over CPU tensors (one lane per query index);
   - hashing of transcript objects stays on the host.
@@ -39,6 +43,11 @@ from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
 from ..ops import scan as sc
 from ..ops import xfield as xf
+from ..utils.checkpoint import (
+    load_commit_stage,
+    proof_key,
+    save_commit_stage,
+)
 from ..utils.metrics import StageTimer
 from ..utils.rng import Rng
 from .arguments import (
@@ -66,6 +75,13 @@ from .device_merkle import (
 )
 from .fri import Fri
 from .merkle import Merkle, SaltBuffer, SaltedMerkle
+from .stream import (
+    StreamedSaltedMerkle,
+    block_values,
+    make_stream_plan,
+    reopen_rows,
+    streamed_commit,
+)
 
 U64 = np.uint64
 
@@ -145,7 +161,9 @@ class BrainfuckStark:
                 self.max_degree = max(self.max_degree, degree)
         self.max_degree = roundup_npo2(self.max_degree) - 1
         fri_domain_length = (self.max_degree + 1) * cfg.expansion_factor
-        cfg.check_domain(fri_domain_length)
+        # the streamed prover takes over from here up
+        self.use_stream = fri_domain_length >= cfg.stream_min
+        self.last_commit_resumes: List[str] = []
 
         self.codec = make_codec(cfg.codec)
         self.fri = Fri(
@@ -251,12 +269,15 @@ class BrainfuckStark:
         dev = self.device
         fri = self.fri
         N = fri.domain.length
-        if path == "u64-torch":
+        if self.use_stream:
+            # a streamed prove runs no N-point transform (size-S class NTTs
+            # and height-sized INTTs only): its tables are `_stream_plan`'s
+            fwd = None
+        elif path == "u64-torch":
             fwd = nt.make_pack(N, fri.domain.omega, False, dev)
         else:
-            # check_domain keeps N below stream_min; the kernel plan covers
-            # every resident domain up to 2^26 and nothing falls back
-            assert N <= kn.KERNEL_NTT_MAX, N
+            # the kernel plan covers every domain up to 2^26 (or raises)
+            # and nothing falls back
             fwd = kn.make_kernel_plan(N, fri.domain.omega, False, dev)
         packs = {
             "fwd": fwd,
@@ -277,15 +298,6 @@ class BrainfuckStark:
         }
         self._packs_cache = (path, packs)
         return packs
-
-    @staticmethod
-    def _fwd_ntt(coeffs, packs):
-        """The shared forward N-point NTT of both LDE stages: the four-step
-        kernel plan (B2/B3) or the u64 butterfly network, bit-identical."""
-        fwd = packs["fwd"]
-        if isinstance(fwd, kn.KernelNttPlan):
-            return kn.ntt_kernel(coeffs, fwd)
-        return nt.ntt_with(coeffs, fwd)
 
     # -- prover stages -------------------------------------------------------
 
@@ -311,7 +323,7 @@ class BrainfuckStark:
             else:
                 tp = packs["tables"][i]
                 rows.append(nt.lde_coefficients(m.T, r, tp[0], tp[1], N))
-        all_cws = self._fwd_ntt(torch.cat(rows, dim=0), packs)
+        all_cws = kn.forward_ntt(torch.cat(rows, dim=0), packs["fwd"])
         rand_cw = all_cws[:3].movedim(0, -1)  # (N, 3)
         base_cws = []
         pos = 3
@@ -360,7 +372,7 @@ class BrainfuckStark:
                 rr = r.movedim(-1, 1).reshape((-1, r.shape[1]))
             rows.append(nt.lde_coefficients(trace, rr, tp[0], tp[1], N))
             layout.append((i, t.num_ext_columns))
-        all_cws = self._fwd_ntt(torch.cat(rows, dim=0), packs)
+        all_cws = kn.forward_ntt(torch.cat(rows, dim=0), packs["fwd"])
         ext_cws = []
         pos = 0
         for i, n_ext in layout:
@@ -377,11 +389,14 @@ class BrainfuckStark:
         return tuple(ext_cws)
 
     def _acc_group(self, acc, stack, w_pairs_g, ratios_g, opow_g,
-                   chunk: int = 16):
+                   chunk: int = 16, length: Optional[int] = None):
         """acc += Σ_t (w_plain_t + w_shift_t·x^s_t)·stack[t], chunked.
         stack: (T, N) base or (T, N, 3) extension terms. The x^s rows are
-        geometric progressions offset^s·(omega^s)^i."""
-        N = self.fri.domain.length
+        geometric progressions offset^s·(omega^s)^i. `length` takes N's
+        place for the streamed, per-class accumulation, where opow_g holds
+        the class's starts (offset·ω^b)^s and ratios_g the per-position
+        ratios (ω^B)^s."""
+        N = length if length is not None else self.fri.domain.length
         base_stream = stack.dim() == 2
         for start in range(0, stack.shape[0], chunk):
             stop = min(start + chunk, stack.shape[0])
@@ -398,13 +413,17 @@ class BrainfuckStark:
         return acc
 
     def _table_quotient_stack(self, ti, base_cw, ext_cw, challenges,
-                              terminals, zinv):
-        """All quotient codewords of table ti as one (T, N, 3) stack."""
+                              terminals, zinv, ud: Optional[int] = None):
+        """All quotient codewords of table ti as one (T, n, 3) stack. `ud`
+        takes the place of the row shift for the streamed, per-class
+        evaluation, where a shift by unit_distance over the domain is a
+        shift by unit_distance/B within each strided class."""
         t = self.tables[ti]
         alg = ArrayAlgebra(self.device)
         ch_vals = [alg.x(challenges[i]) for i in range(11)]
         tm_vals = [alg.x(terminals[i]) for i in range(5)]
-        ud = t.unit_distance(self.fri.domain.length)
+        if ud is None:
+            ud = t.unit_distance(self.fri.domain.length)
 
         def rot(arr):
             return torch.roll(arr, -ud, 0) if ud else arr
@@ -415,6 +434,279 @@ class BrainfuckStark:
         point_next += [alg.x(rot(ext_cw[j])) for j in range(t.num_ext_columns)]
         q = t.quotients(alg, point, point_next, ch_vals, tm_vals, zinv)
         return torch.stack(q, dim=0)
+
+    # -- streamed (strided-class) prover pieces ----------------------------
+    # At FRI domains >= config.stream_min whole base/ext codewords never
+    # exist: coefficient groups are evaluated and committed in B strided
+    # classes (protocol/stream.py). Transcript bytes equal the resident
+    # path's (tests/test_torch_stream.py, tests/test_torch_stark.py).
+    #
+    # What the JAX package does here for its compiler and runtime, and the
+    # port has no counterpart for: per-class data as runtime arguments of
+    # once-compiled stages; a hard sync per block against the host running
+    # ahead of the device (torch's caching allocator reuses freed blocks in
+    # stream order, so a later class's temporaries take the earlier one's);
+    # the STARK_STREAM_SYNC_ALL bisection aid; the flat randomizer draw and
+    # its PRF_D chunking, and the quotients accumulated from a list instead
+    # of a stack (all three against a padded tile layout: on an H100 the
+    # list form held the stacked form's peak to the byte, PERF.md, so the
+    # classes go through `_acc_group` as the resident path does).
+
+    def _stream_plan(self):
+        """B, S and the size-S transform's tables, cached per NTT path."""
+        path = self._ntt_path()
+        cache = getattr(self, "_splan_cache", None)
+        if cache is not None and cache[0] == path:
+            return cache[1]
+        N = self.fri.domain.length
+        # B must divide every table's unit distance N/height, so that the
+        # transition's row shift stays within a class
+        B = self.config.stream_classes
+        for t in self.tables:
+            if t.height > 0:
+                B = min(B, t.unit_distance(N))
+        B = max(B, 2)
+        plan = make_stream_plan(
+            N, B, self.fri.domain.omega, self.device,
+            kernel_ntt=path != "u64-torch",
+        )
+        self._splan_cache = (path, plan)
+        return plan
+
+    def _claim_key(self) -> str:
+        return proof_key(
+            self.program, self.input_symbols, self.output_symbols, self.config
+        )
+
+    def _streamed_commit_cached(self, groups, salt_key: bytes, splan, tag):
+        """`streamed_commit`, remembered per stage: with a seeded rng and a
+        `checkpoint_dir`, the accumulated class-level digests are kept per
+        (claim, stage); a resumed run derives the cheap deterministic state
+        again (groups, rng draws) and skips the streaming hash pass, to the
+        identical tree. Tags of stages loaded from a checkpoint are recorded
+        in `last_commit_resumes`."""
+        cfg = self.config
+        if not cfg.checkpoint_dir or cfg.seed is None:
+            return streamed_commit(groups, salt_key, splan)
+        key = self._claim_key()
+        got = load_commit_stage(cfg.checkpoint_dir, key, tag)
+        if got is not None:
+            self.last_commit_resumes.append(tag)
+            top = torch.from_numpy(got).to(self.device)
+            return StreamedSaltedMerkle(splan["N"], splan["B"], top, salt_key)
+        tree = streamed_commit(groups, salt_key, splan)
+        # levels[0] is the level-log2(B) digest array that the ladder builds
+        # everything above from
+        save_commit_stage(
+            cfg.checkpoint_dir, key, tag, tree.levels[0].cpu().numpy()
+        )
+        return tree
+
+    def _stage_base_coeffs(self, mats, rand_coeffs, base_rands, packs):
+        """Offset-prescaled coefficient groups of every base commitment row
+        (randomizer limbs first, then each table's base columns): the
+        streamed prover's persistent state, in the zip order of the resident
+        base commitment."""
+        rand_coeffs = rand_coeffs.reshape(-1, 3)
+        groups = [
+            f.mul(rand_coeffs.movedim(-1, 0),
+                  packs["rand_scale"][: rand_coeffs.shape[0]])
+        ]
+        for i, (t, m, r) in enumerate(zip(self.tables, mats, base_rands)):
+            if t.height == 0:
+                groups.append(torch.zeros((t.base_width, 1), dtype=torch.int64,
+                                          device=self.device))
+                continue
+            tp = packs["tables"][i]
+            groups.append(nt.lde_coefficients_unpadded(m.T, r, tp[0], tp[1]))
+        return tuple(groups)
+
+    def _stage_ext_coeffs(self, xcols, ext_rands, packs):
+        """Extension-column coefficient groups (3 limb rows a column, in the
+        zip order of the resident extension commitment)."""
+        groups = []
+        for i, (t, cols, r) in enumerate(zip(self.tables, xcols, ext_rands)):
+            if t.height == 0:
+                groups.append(
+                    torch.zeros((3 * t.num_ext_columns, 1), dtype=torch.int64,
+                                device=self.device)
+                )
+                continue
+            tp = packs["tables"][i]
+            trace = cols.movedim(0, -1)  # (n_ext, 3, H)
+            trace = trace.reshape((-1, trace.shape[-1]))
+            rr = None
+            if r is not None:
+                rr = r.movedim(-1, 1).reshape((-1, r.shape[1]))
+            groups.append(
+                nt.lde_coefficients_unpadded(trace, rr, tp[0], tp[1])
+            )
+        return tuple(groups)
+
+    def _zinv_stream(self):
+        """Zerofier-inverse state of a streamed prove: the boundary and the
+        per-height terminal inverses at full length (natural order, gathered
+        per class) and the small periodic inverse of x^H - 1; the transition
+        inverse is recomposed per class, not stored at full length (2 of 3
+        N-arrays a height saved). Dropped by `prove` after its last use."""
+        cache = getattr(self, "_zs_cache", None)
+        if cache is not None:
+            return cache
+        dev = self.device
+        N = self.fri.domain.length
+        omega = self.fri.domain.omega
+        offset = self.fri.domain.offset
+
+        def scalar(v):
+            return u64_to_tensor([v], dev)
+
+        one = f.const(1, torch.empty(0, device=dev))
+        domain = f.geometric_rows(scalar(offset), scalar(omega), N)[0]
+        out = {"boundary": f.batch_inverse(f.sub(domain, one)), "heights": {}}
+        for t in self.tables:
+            h = t.height
+            if h in out["heights"]:
+                continue
+            if h == 0:
+                out["heights"][h] = None
+                continue
+            o_inv = f.h_inverse(t.omicron)
+            xs = f.geometric_rows(
+                scalar(f.h_pow(offset, h)), scalar(f.h_pow(omega, h)), N // h
+            )[0]
+            out["heights"][h] = {
+                "terminal": f.batch_inverse(f.sub(domain, scalar(o_inv))),
+                "small": f.batch_inverse(f.sub(xs, one)),
+                "o_inv": o_inv,
+            }
+        self._zs_cache = out
+        return out
+
+    def _stream_zinv_block(self, b: int, zs, splan):
+        """Class b's zerofier inverses, {height: {boundary, transition,
+        terminal}}: strided gathers from the stored boundary and terminal
+        arrays, and the transition (x - o^-1)/(x^H - 1) recomposed from the
+        periodic small table."""
+        dev = self.device
+        N, B, S = splan["N"], splan["B"], splan["S"]
+        domain = self.fri.domain
+        x_blk = f.geometric_rows(
+            u64_to_tensor([f.h_mul(domain.offset, f.h_pow(domain.omega, b))],
+                          dev),
+            u64_to_tensor([f.h_pow(domain.omega, B)], dev), S,
+        )[0]
+
+        def cls(arr):
+            return arr.reshape(-1, B)[:, b]
+
+        boundary = cls(zs["boundary"])
+        out = {}
+        for h, d in zs["heights"].items():
+            if d is None:
+                zero = torch.zeros((S,), dtype=torch.int64, device=dev)
+                out[h] = {"boundary": boundary, "transition": zero,
+                          "terminal": zero}
+                continue
+            # the small table's period N/h is the unit distance, and B
+            # divides it (`_stream_plan`)
+            small_cls = cls(d["small"])  # (N/h/B,)
+            transition = f.mul(
+                small_cls.repeat(S // small_cls.shape[0]),
+                f.sub(x_blk, u64_to_tensor([d["o_inv"]], dev)),
+            )
+            out[h] = {"boundary": boundary, "transition": transition,
+                      "terminal": cls(d["terminal"])}
+        return out
+
+    def _stream_combination(self, base_groups, ext_groups, challenges_arr,
+                            terminals_arr, weights_h, shifts, offset_pows,
+                            splan, table_quot_counts):
+        """Quotients and the nonlinear combination evaluated per strided
+        class; returns the assembled (N, 3) combination codeword."""
+        dev = self.device
+        N, B, S = splan["N"], splan["B"], splan["S"]
+        omega = splan["omega"]
+        zs = self._zinv_stream()
+        scale_len_b = max(int(g.shape[1]) for g in base_groups)
+        scale_len_e = max(int(g.shape[1]) for g in ext_groups)
+        # per-term ratios (ω^B)^s are the same for every class
+        ratios = u64_to_tensor(
+            [f.h_pow(omega, (B * int(sh)) % N) for sh in shifts], dev
+        )
+        w0 = u64_to_tensor(weights_h[0], dev)
+        w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
+        wbs = f.powers(omega, B, dev)
+        num_base = sum(t.base_width for t in self.tables)
+        num_ext = sum(t.num_ext_columns for t in self.tables)
+
+        # leaf i = q·B + b  ->  comb[q, b] = class b's value at position q
+        comb = torch.empty((S, B, 3), dtype=torch.int64, device=dev)
+        for b in range(B):
+            wb = wbs[b : b + 1]
+            # per-term x^s starts on this class: (offset·ω^b)^s
+            starts = u64_to_tensor(
+                [
+                    f.h_mul(int(offset_pows[j]),
+                            f.h_pow(omega, (b * int(sh)) % N))
+                    for j, sh in enumerate(shifts)
+                ],
+                dev,
+            )
+            base_vals = block_values(base_groups, wb, scale_len_b,
+                                     splan["pack_S"], S)
+            ext_vals = block_values(
+                ext_groups, wb, scale_len_e, splan["pack_S"], S
+            ).reshape(num_ext, 3, S).movedim(1, -1)  # (num_ext, S, 3)
+            zinv_b = self._stream_zinv_block(b, zs, splan)
+
+            acc = xf.mul(w0[None, :].expand(S, 3),
+                         base_vals[:3].movedim(0, -1))
+            pos = 0
+
+            def span(count):
+                nonlocal pos
+                sl = slice(pos, pos + count)
+                pos += count
+                return w_pairs[sl], ratios[sl], starts[sl]
+
+            acc = self._acc_group(acc, base_vals[3:], *span(num_base),
+                                  length=S)
+            acc = self._acc_group(acc, ext_vals, *span(num_ext), length=S)
+
+            row0, ext0 = 3, 0
+            ext_cws_b = []
+            for ti, t in enumerate(self.tables):
+                base_cw_b = base_vals[row0 : row0 + t.base_width]
+                ext_cw_b = ext_vals[ext0 : ext0 + t.num_ext_columns]
+                ext_cws_b.append(ext_cw_b)
+                row0 += t.base_width
+                ext0 += t.num_ext_columns
+                ud_b = t.unit_distance(N) // B
+                stack = self._table_quotient_stack(
+                    ti, base_cw_b, ext_cw_b, challenges_arr, terminals_arr,
+                    zinv_b[t.height], ud=ud_b,
+                )
+                acc = self._acc_group(
+                    acc, stack, *span(table_quot_counts[ti]), length=S
+                )
+                del stack
+
+            # permutation-argument difference quotients
+            boundary = zinv_b[self.tables[0].height]["boundary"]
+            pa_stack = torch.stack(
+                [
+                    xf.mul_base(xf.sub(ext_cws_b[0][0], ext_cws_b[1][0]),
+                                boundary),
+                    xf.mul_base(xf.sub(ext_cws_b[0][1], ext_cws_b[2][0]),
+                                boundary),
+                ],
+                dim=0,
+            )
+            acc = self._acc_group(acc, pa_stack, *span(2), length=S)
+            assert pos == len(shifts), "term/shift bookkeeping mismatch"
+            comb[:, b] = acc
+            del base_vals, ext_vals, ext_cws_b, zinv_b, acc
+        return comb.reshape(N, 3)
 
     def _combination_pipeline(self, rand_cw, base_cws, ext_cws,
                               challenges_arr, terminals_arr, weights_h,
@@ -484,6 +776,8 @@ class BrainfuckStark:
         N = fri.domain.length
         timer = StageTimer(dev)
         _mark = timer.mark
+        use_stream = self.use_stream
+        self.last_commit_resumes = []
         launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE)
 
         # 1. populate and pad (ref brainfuck_stark.py:139-150)
@@ -517,20 +811,39 @@ class BrainfuckStark:
         )
         packs = self._lde_packs()
         device_commit = N >= cfg.device_commit_min
-        randomizer_codeword, base_codewords = self._stage_base_lde(
-            mats, randomizer_coeffs, base_rands, packs
-        )
-        _mark("stage_a (base LDE)")
+        if use_stream:
+            # streamed mode: only coefficient groups persist (see
+            # protocol/stream.py); the transcript equals the resident one
+            splan = self._stream_plan()
+            base_groups = self._stage_base_coeffs(
+                mats, randomizer_coeffs, base_rands, packs
+            )
+            del randomizer_coeffs
+            _mark("stage_a (base coeffs)")
+        else:
+            randomizer_codeword, base_codewords = self._stage_base_lde(
+                mats, randomizer_coeffs, base_rands, packs
+            )
+            _mark("stage_a (base LDE)")
 
         # 4. salted commitment to the zipped base codewords (ref :178-180)
-        base_key = salt_key_words(rng.bytes(16), dev)
+        base_salt_key = rng.bytes(16)
         num_base_cols = sum(t.base_width for t in self.tables)
         base_widths = [3] + [1] * num_base_cols
-        zipped_base = torch.cat(
-            [randomizer_codeword] + [cw.T for cw in base_codewords], dim=1
-        )  # (N, 3 + num_base_columns)
-        base_tree, base_row = self._salted_commit(zipped_base, base_key)
-        _mark("base merkle (device)" if device_commit else "base merkle")
+        if use_stream:
+            base_tree = self._streamed_commit_cached(
+                base_groups, base_salt_key, splan, "base"
+            )
+            base_row = base_tree.row_at
+            _mark("base merkle (streamed)")
+        else:
+            zipped_base = torch.cat(
+                [randomizer_codeword] + [cw.T for cw in base_codewords], dim=1
+            )  # (N, 3 + num_base_columns)
+            base_tree, base_row = self._salted_commit(
+                zipped_base, salt_key_words(base_salt_key, dev)
+            )
+            _mark("base merkle (device)" if device_commit else "base merkle")
         base_leaf_cache: Dict[int, tuple] = {}
 
         def base_leaf_obj(idx):
@@ -570,18 +883,35 @@ class BrainfuckStark:
         terminals_h = self._terminals_list()
 
         # 8. extension LDE (ref :194-199)
-        ext_codewords = self._stage_ext_lde(xcols, ext_rands, packs)
-        del xcols
-        _mark("stage_b (ext LDE)")
+        if use_stream:
+            ext_groups = self._stage_ext_coeffs(xcols, ext_rands, packs)
+            # the trace matrices and the extension columns were consumed by
+            # stage_a, the scan and stage_b: only the groups persist
+            del xcols, mats
+            _mark("stage_b (ext coeffs)")
+        else:
+            ext_codewords = self._stage_ext_lde(xcols, ext_rands, packs)
+            del xcols
+            _mark("stage_b (ext LDE)")
 
-        ext_key = salt_key_words(rng.bytes(16), dev)
+        ext_salt_key = rng.bytes(16)
         num_ext_cols = sum(t.num_ext_columns for t in self.tables)
         ext_widths = [3] * num_ext_cols
-        zipped_ext = torch.cat(
-            [cw.movedim(0, 1).reshape(N, -1) for cw in ext_codewords], dim=1
-        )  # (N, 3 * num_ext_columns)
-        ext_tree, ext_row = self._salted_commit(zipped_ext, ext_key)
-        _mark("ext merkle (device)" if device_commit else "ext merkle")
+        if use_stream:
+            ext_tree = self._streamed_commit_cached(
+                ext_groups, ext_salt_key, splan, "ext"
+            )
+            ext_row = ext_tree.row_at
+            _mark("ext merkle (streamed)")
+        else:
+            zipped_ext = torch.cat(
+                [cw.movedim(0, 1).reshape(N, -1) for cw in ext_codewords],
+                dim=1,
+            )  # (N, 3 * num_ext_columns)
+            ext_tree, ext_row = self._salted_commit(
+                zipped_ext, salt_key_words(ext_salt_key, dev)
+            )
+            _mark("ext merkle (device)" if device_commit else "ext merkle")
         ext_leaf_cache: Dict[int, tuple] = {}
 
         def ext_leaf_obj(idx):
@@ -595,10 +925,11 @@ class BrainfuckStark:
 
         # 9. quotient degree bounds (host, symbolic; ref :210-218)
         quotient_degree_bounds = []
+        table_quot_counts = []
         for t in self.tables:
-            quotient_degree_bounds += t.all_quotient_degree_bounds(
-                challenges_h, terminals_h
-            )
+            bounds = t.all_quotient_degree_bounds(challenges_h, terminals_h)
+            table_quot_counts.append(len(bounds))
+            quotient_degree_bounds += bounds
         for pa in self.permutation_arguments:
             quotient_degree_bounds.append(pa.quotient_degree_bound())
 
@@ -623,10 +954,16 @@ class BrainfuckStark:
         shifts = [self.max_degree - b for b in all_shift_bounds]
         offset_pows = [f.h_pow(fri.domain.offset, s) for s in shifts]
         terminals_arr = u64_to_tensor(terminals_h, dev)
-        combination = self._combination_pipeline(
-            randomizer_codeword, base_codewords, ext_codewords,
-            challenges_arr, terminals_arr, weights_h, shifts, offset_pows,
-        )
+        if use_stream:
+            combination = self._stream_combination(
+                base_groups, ext_groups, challenges_arr, terminals_arr,
+                weights_h, shifts, offset_pows, splan, table_quot_counts,
+            )
+        else:
+            combination = self._combination_pipeline(
+                randomizer_codeword, base_codewords, ext_codewords,
+                challenges_arr, terminals_arr, weights_h, shifts, offset_pows,
+            )
         _mark("stage_c (quotients+combination)")
 
         # 13. commit to the combination codeword (ref :301-302)
@@ -663,7 +1000,7 @@ class BrainfuckStark:
 
         # 15. open zipped base/ext leaves (ref :313-326); device trees
         # gather all rows/salts/path siblings in one transfer
-        if device_commit:
+        if device_commit or use_stream:
             open_idx = sorted(
                 {
                     (index + d) % N
@@ -671,10 +1008,20 @@ class BrainfuckStark:
                     for d in [0] + unit_distances
                 }
             )
-            prefetch_trees(
-                [(base_tree, open_idx), (ext_tree, open_idx),
-                 (combination_tree, indices)]
-            )
+            if use_stream:
+                # second streaming pass: evaluate the classes again and
+                # gather the opened positions
+                base_tree.resolve(open_idx, reopen_rows(base_groups, splan))
+                ext_tree.resolve(open_idx, reopen_rows(ext_groups, splan))
+                # the groups and the zerofier-inverse store had their last
+                # use above: free them before FRI runs
+                del base_groups, ext_groups
+                self._zs_cache = None
+                _mark("reopen (streamed 2nd pass)")
+            batch = [(base_tree, open_idx), (ext_tree, open_idx)]
+            if device_commit:
+                batch.append((combination_tree, indices))
+            prefetch_trees(batch)
         for index in indices:
             for distance in [0] + unit_distances:
                 idx = (index + distance) % N
@@ -712,8 +1059,10 @@ class BrainfuckStark:
             fri_round_s=self.fri.last_round_s,
             device=str(dev),
             ntt_path=self._ntt_path(),
+            stream_classes=splan["B"] if use_stream else None,
+            stream_block=splan["S"] if use_stream else None,
             hash_path=(
-                "host-hashlib" if not device_commit
+                "host-hashlib" if not (device_commit or use_stream)
                 else "cuda-blake2b" if dev.type == "cuda"
                 else "torch-plain"
             ),

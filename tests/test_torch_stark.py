@@ -1,6 +1,7 @@
-"""Torch port end to end: seeded proofs equal the JAX package's bytes, the
-two verifiers accept each other's proofs, tampering is rejected, the port
-needs a CUDA device unless asked for the CPU, and it imports no JAX."""
+"""Torch port end to end: seeded proofs equal the JAX package's bytes, on
+the resident and on the streamed path, the two verifiers accept each
+other's proofs, tampering is rejected, the port needs a CUDA device unless
+asked for the CPU, and it imports no JAX."""
 
 import ast
 import os
@@ -32,7 +33,7 @@ _CACHE = {}
 
 
 def _setup(key):
-    src, inp, seed = PROGRAMS[key]
+    src, inp, seed = {**PROGRAMS, **STREAM_PROGRAMS}[key]
     program = J.VirtualMachine.compile(src)
     tr = J.VirtualMachine.simulate(program, inp)
     args = (tr["processor"], tr["memory"], tr["instruction"],
@@ -107,6 +108,87 @@ def test_mxu_proofs_cross_verify(key):
     tb, pt = _mxu_proof(key)
     assert tb.verify(pj), tb.last_rejection
     assert jb.verify(pt), jb.last_rejection
+
+
+# streamed (strided-class) proves: `stream_min=1` sends every domain down the
+# streamed path, 4 classes; the programs and seed of tests/test_stream.py
+STREAM = {"stream_min": 1, "stream_classes": 4}
+STREAM_PROGRAMS = {
+    "io11": (",+.", "a", 11),
+    "loop6": ("+" * 6 + "[->++<]", "", 11),
+    # FRI domain 16384: device trees for the combination and FRI
+    "device_commit": PROGRAMS["device_commit"],
+}
+STREAM_CASES = [(k, nb) for k in STREAM_PROGRAMS for nb in ("auto", "mxu")]
+
+
+def _streamed_proof(key, backend):
+    if ("streamed", key, backend) not in _CACHE:
+        make, args = _setup(key)
+        tb = make(TP, device="cpu",
+                  config={**STREAM, "ntt_backend": backend})
+        _CACHE["streamed", key, backend] = (tb, tb.prove(*args))
+    return _CACHE["streamed", key, backend]
+
+
+@pytest.mark.parametrize("key,backend", STREAM_CASES)
+def test_streamed_proof_bytes_equal_jax_and_resident(key, backend):
+    _, pj, tb0, pt0 = _proofs(key)
+    tb, pt = _streamed_proof(key, backend)
+    assert tb.use_stream and not tb0.use_stream
+    assert pt == pj, "streamed bytes differ from the JAX resident proof"
+    assert pt == pt0, "streamed bytes differ from the port's resident proof"
+    m = tb.last_metrics
+    assert (m["stream_classes"], m["stream_block"]) == (
+        4, tb.fri.domain.length // 4)
+    assert m["ntt_path"] == (
+        "four-step-plain" if backend == "mxu" else "u64-torch")
+    assert tb._lde_packs()["fwd"] is None, "a streamed prove needs no N pack"
+    for stage in ("stage_a (base coeffs)", "base merkle (streamed)",
+                  "stage_b (ext coeffs)", "ext merkle (streamed)",
+                  "reopen (streamed 2nd pass)"):
+        assert stage in m["stages_s"], stage
+    assert tb0.last_metrics["stream_classes"] is None
+
+
+@pytest.mark.parametrize("key,backend", STREAM_CASES)
+def test_streamed_proofs_cross_verify(key, backend):
+    jb, pj, tb0, _ = _proofs(key)
+    tb, pt = _streamed_proof(key, backend)
+    assert jb.verify(pt), jb.last_rejection
+    assert tb0.verify(pt), tb0.last_rejection
+    assert tb.verify(pj), tb.last_rejection
+
+
+def test_stream_classes_are_cut_to_the_unit_distance():
+    """B is cut to the smallest table unit distance (the transition's row
+    shift must stay inside a class) and never below 2."""
+    make, _ = _setup("io")
+    tb = make(TP, device="cpu", config={"stream_min": 1})
+    N = tb.fri.domain.length
+    ud = min(t.unit_distance(N) for t in tb.tables if t.height > 0)
+    assert tb.config.stream_classes == 32
+    assert tb._stream_plan()["B"] == min(32, ud) >= 2
+    assert tb._stream_plan() is tb._stream_plan()
+
+
+def test_default_stream_min_is_2_22():
+    make, _ = _setup("plus4")
+    tb = make(TP, device="cpu")
+    assert tb.config.stream_min == 1 << 22 and not tb.use_stream
+
+
+def test_tampered_streamed_opening_rejected():
+    tb, pt = _streamed_proof("io11", "auto")
+
+    def mutate(objs):
+        el = list(objs[10])  # the first opened extension leaf
+        c = list(el[0])
+        c[0] = (int(c[0]) + 1) % P
+        el[0] = tuple(c)
+        objs[10] = tuple(el)
+
+    assert "extension codeword opening" in _tampered(tb, pt, mutate)
 
 
 def _tampered(tb, proof, mutate):
@@ -185,8 +267,7 @@ def test_default_device_needs_cuda():
     [
         {"mesh_shape": (("shard", 2),)},
         {"codec": "ref"},
-        {"checkpoint_dir": "ckpt"},
-        {"stream_min": 1 << 9},
+        {"debug_degree_checks": True},
     ],
 )
 def test_unported_options_raise(fields):

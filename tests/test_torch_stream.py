@@ -1,0 +1,287 @@
+"""The port's streamed (strided-class) commitments against the JAX
+package's `protocol/stream.py` (run with xp=np) and against the port's own
+resident device trees: folds, class values, roots, openings, rows, salts.
+Inputs come from a numpy seed; every comparison is exact (integers)."""
+
+import numpy as np
+import pytest
+import torch
+
+from stark_brainfuck_tpu.ops import field as jf
+from stark_brainfuck_tpu.ops import ntt as jnt
+from stark_brainfuck_tpu.protocol import device_merkle as jdm
+from stark_brainfuck_tpu.protocol import stream as jstream
+from stark_brainfuck_tpu_torch.convert import (
+    digest_planes_to_words,
+    digest_words_to_planes,
+    groups_to_tensors,
+    tensor_to_u64,
+    u64_to_tensor,
+)
+from stark_brainfuck_tpu_torch.ops import blake2b as B2
+from stark_brainfuck_tpu_torch.ops import kernel_ntt as kn
+from stark_brainfuck_tpu_torch.ops import ntt as nt
+from stark_brainfuck_tpu_torch.protocol import stream as ts
+from stark_brainfuck_tpu_torch.protocol.device_merkle import (
+    DeviceMerkle,
+    DeviceSaltedMerkle,
+    salt_key_words,
+    salt_words_device,
+)
+
+torch.set_num_threads(1)
+
+U64 = np.uint64
+KEY = b"0123456789abcdef"
+
+
+def _setup(N=2048, B=8, seed=0, kernel_ntt=False):
+    """Random offset-prescaled coefficient groups (one longer than S for
+    every B here, one ragged, one tiny), the full-domain codeword rows they
+    evaluate to, and both packages' stream plans."""
+    rng = np.random.default_rng(seed)
+    omega = jf.primitive_nth_root(N)
+    scale = jnt.scale_table(jf.GENERATOR, N, np)
+    groups_np = []
+    for d in (N // 4, N // 8 + 1, 3):
+        raw = rng.integers(0, jf.P, (2, d), dtype=np.uint64)
+        groups_np.append(jf.mul(raw, scale[:d], np))
+    pack_N = jnt.make_pack(N, omega, False, np)
+    rows_full = []
+    for g in groups_np:
+        padded = np.concatenate(
+            [g, np.zeros((g.shape[0], N - g.shape[1]), dtype=U64)], axis=1
+        )
+        rows_full.append(jnt.ntt_with(padded, pack_N, np))
+    zipped = np.ascontiguousarray(np.concatenate(rows_full, axis=0).T)
+    plan_j = jstream.make_stream_plan(N, B, omega, np)
+    plan_t = ts.make_stream_plan(N, B, omega, "cpu", kernel_ntt=kernel_ntt)
+    return tuple(groups_np), groups_to_tensors(groups_np), zipped, plan_j, plan_t
+
+
+@pytest.mark.parametrize(
+    "d,S", [(5, 16), (16, 16), (128, 16), (37, 16), (1, 8)],
+    ids=["d<S", "d=S", "d=8S", "ragged", "d=1"],
+)
+def test_fold_mod_matches_jax(d, S):
+    rng = np.random.default_rng(d * 100 + S)
+    c = rng.integers(0, jf.P, (3, d), dtype=np.uint64)
+    c[0, 0] = jf.P - 1
+    want = jstream.fold_mod(c, S, np)
+    got = tensor_to_u64(ts.fold_mod(u64_to_tensor(c), S))
+    assert got.shape == (3, S)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kernel_ntt", [False, True], ids=["u64", "mxu"])
+@pytest.mark.parametrize("B", [2, 8])
+def test_block_values_match_jax_and_the_codeword(B, kernel_ntt):
+    gj, gt, zipped, plan_j, plan_t = _setup(B=B, kernel_ntt=kernel_ntt)
+    S = plan_t["S"]
+    assert isinstance(plan_t["pack_S"], kn.KernelNttPlan) == kernel_ntt
+    scale_len = max(g.shape[1] for g in gj)
+    for b in (0, 1, B - 1):
+        wb = np.asarray([jf.h_pow(plan_j["omega"], b)], dtype=U64)
+        want = jstream.block_values(gj, wb, scale_len, plan_j["pack_S"], S, np)
+        got = tensor_to_u64(
+            ts.block_values(gt, u64_to_tensor(wb), scale_len,
+                            plan_t["pack_S"], S)
+        )
+        assert np.array_equal(got, want)
+        # class b of the full codeword: leaf index b + B·q
+        assert np.array_equal(got.T, zipped[b::B])
+
+
+CASES = [
+    pytest.param(2, False, False, id="plain-B2"),
+    pytest.param(8, False, False, id="plain-B8"),
+    pytest.param(4, True, False, id="salted-B4"),
+    pytest.param(8, False, True, id="plain-B8-mxu"),
+    pytest.param(4, True, True, id="salted-B4-mxu"),
+]
+# the query sets of tests/test_stream.py
+PLAIN_IDX = [0, 1, 5, 1023, 2047, 777]
+SALTED_IDX = [3, 512, 2046]
+
+
+def _trees(B, salted, kernel_ntt):
+    gj, gt, zipped, plan_j, plan_t = _setup(B=B, kernel_ntt=kernel_ntt)
+    key = KEY if salted else None
+    jax_tree = jstream.streamed_commit(gj, key, plan_j, np)
+    streamed = ts.streamed_commit(gt, key, plan_t)
+    rows = u64_to_tensor(zipped)
+    if salted:
+        salts = salt_words_device(salt_key_words(KEY), zipped.shape[0])
+        resident = DeviceSaltedMerkle(rows, salts, cut=2)
+    else:
+        resident = DeviceMerkle(rows, cut=2)
+    return gj, gt, plan_j, plan_t, jax_tree, streamed, resident
+
+
+@pytest.mark.parametrize("B,salted,kernel_ntt", CASES)
+def test_streamed_tree_matches_jax_and_resident(B, salted, kernel_ntt):
+    gj, gt, plan_j, plan_t, jax_tree, streamed, resident = _trees(
+        B, salted, kernel_ntt
+    )
+    assert streamed.root() == jax_tree.root() == resident.root()
+    # the accumulator's top digests, through convert, are JAX's levels[0]
+    lo, hi = jax_tree.levels[0]
+    assert torch.equal(streamed.levels[0], digest_planes_to_words(lo, hi))
+    back = digest_words_to_planes(streamed.levels[0])
+    assert np.array_equal(back[0], np.asarray(lo))
+    assert np.array_equal(back[1], np.asarray(hi))
+
+    idx = SALTED_IDX if salted else PLAIN_IDX
+    streamed.resolve(idx, ts.reopen_rows(gt, plan_t))
+    jax_tree.resolve(idx, jstream.reopen_rows(gj, plan_j, np))
+    for tree in (streamed, jax_tree, resident):
+        tree.prefetch(idx)
+    for i in idx:
+        assert streamed.open(i) == resident.open(i) == jax_tree.open(i)
+        assert np.array_equal(streamed.row_at(i), resident.row_at(i))
+        assert np.array_equal(streamed.row_at(i), jax_tree.row_at(i))
+        if salted:
+            assert streamed.salt_at(i) == resident.salt_at(i)
+
+
+@pytest.mark.parametrize("salted", [False, True], ids=["plain", "salted"])
+def test_open_before_resolve_raises(salted):
+    _, gt, _, plan_t, _, streamed, _ = _trees(4, salted, False)
+    with pytest.raises(RuntimeError, match="resolve"):
+        streamed.prefetch([7])
+    with pytest.raises(RuntimeError, match="resolve"):
+        streamed.row_at(7)
+    streamed.resolve([7], ts.reopen_rows(gt, plan_t))
+    streamed.open(7)
+    # index 7 resolved the whole run of B leaves it lies in, no other
+    streamed.open(4)
+    with pytest.raises(RuntimeError, match="resolve"):
+        streamed.prefetch([8])
+
+
+def test_resolve_asks_only_for_missing_positions():
+    _, gt, _, plan_t, _, streamed, _ = _trees(4, False, False)
+    asked = []
+    rows_for = ts.reopen_rows(gt, plan_t)
+
+    def spy(positions):
+        asked.append(list(positions))
+        return rows_for(positions)
+
+    streamed.resolve([0, 1, 9], spy)
+    streamed.resolve([2, 9, 400], spy)
+    streamed.resolve([3], spy)
+    assert asked == [[0, 2], [100]]
+
+
+def test_accumulator_takes_reduced_groups_at_their_level():
+    """Classes reduced pairwise before they are added (level=1) give the
+    digests of adding them one by one."""
+    rng = np.random.default_rng(5)
+    digs = [
+        u64_to_tensor(rng.integers(0, 1 << 63, (32, 8), dtype=np.uint64))
+        for _ in range(8)
+    ]
+    one_by_one = ts.StreamAccumulator()
+    for d in digs:
+        one_by_one.add(d)
+    grouped = ts.StreamAccumulator()
+    for k in range(0, 8, 2):
+        grouped.add(B2.merkle_parents_pair(digs[k], digs[k + 1]), level=1)
+    lvl_a, top_a = one_by_one.finish()
+    lvl_b, top_b = grouped.finish()
+    assert lvl_a == lvl_b == 3
+    assert torch.equal(top_a, top_b)
+
+
+def test_accumulator_rejects_a_class_count_that_is_no_power_of_two():
+    acc = ts.StreamAccumulator()
+    for _ in range(3):
+        acc.add(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="power of two"):
+        acc.finish()
+    with pytest.raises(ValueError, match="power of two"):
+        ts.StreamedMerkle(48, 6, torch.zeros((8, 8), dtype=torch.int64))
+
+
+def test_merkle_parents_pair_matches_jax_and_the_heap_form():
+    rng = np.random.default_rng(9)
+    left = rng.integers(0, 1 << 64, (64, 8), dtype=np.uint64)
+    right = rng.integers(0, 1 << 64, (64, 8), dtype=np.uint64)
+    got = B2.merkle_parents_pair(u64_to_tensor(left), u64_to_tensor(right))
+    l_lo, l_hi = digest_words_to_planes(u64_to_tensor(left))
+    r_lo, r_hi = digest_words_to_planes(u64_to_tensor(right))
+    from stark_brainfuck_tpu.ops import blake2b as JB
+
+    lo, hi = JB.merkle_parents_pair(l_lo, l_hi, r_lo, r_hi, np)
+    assert torch.equal(got, digest_planes_to_words(lo, hi))
+    heap = np.stack([left, right], axis=1).reshape(128, 8)
+    assert torch.equal(got, B2.merkle_parents(u64_to_tensor(heap)))
+
+
+@pytest.mark.parametrize("start", [0, (1 << 26) - 40, (1 << 32) - 40],
+                         ids=["0", "2^26", "2^32"])
+def test_salts_at_explicit_indices_match_jax(start):
+    """Strided leaf indices b + B·q up to the largest domain (2^26) and to
+    the end of JAX's u32 counter, against the JAX salt PRF and against a
+    slice of the port's counter form."""
+    idx = start + 5 + 4 * np.arange(8, dtype=np.int64)
+    got = salt_words_device(salt_key_words(KEY), 8,
+                            indices=torch.from_numpy(idx))
+    want = jdm.salt_words(KEY, 8, np, indices=idx.astype(np.uint32))
+    lo_hi = np.asarray(want, dtype=np.uint64).reshape(8, 3, 2)
+    assert np.array_equal(
+        tensor_to_u64(got), lo_hi[:, :, 0] | (lo_hi[:, :, 1] << np.uint64(32))
+    )
+    assert np.array_equal(ts.salt_words_host(KEY, idx), tensor_to_u64(got))
+    if start == 0:
+        whole = salt_words_device(salt_key_words(KEY), 40)
+        assert torch.equal(got, whole[torch.from_numpy(idx)])
+
+
+def test_salt_indices_are_checked():
+    key = salt_key_words(KEY)
+    with pytest.raises(ValueError):
+        salt_words_device(key, 4, indices=torch.arange(5))
+    with pytest.raises(ValueError):
+        salt_words_device(key, 4, indices=torch.arange(4, dtype=torch.int32))
+
+
+def test_lde_coefficients_unpadded_matches_jax_and_the_padded_form():
+    rng = np.random.default_rng(3)
+    H, R, N = 64, 2, 512
+    omicron = jf.primitive_nth_root(H)
+    trace = rng.integers(0, jf.P, (5, H), dtype=np.uint64)
+    rand = rng.integers(0, jf.P, (5, R), dtype=np.uint64)
+    want = jnt.lde_coefficients_unpadded(
+        trace, rand, jnt.make_pack(H, omicron, True, np),
+        jnt.scale_table(jf.GENERATOR, H + R, np), np,
+    )
+    pack = nt.make_pack(H, omicron, True)
+    scale = nt.scale_table(jf.GENERATOR, H + R)
+    got = nt.lde_coefficients_unpadded(
+        u64_to_tensor(trace), u64_to_tensor(rand), pack, scale
+    )
+    assert got.shape == (5, H + R)
+    assert np.array_equal(tensor_to_u64(got), want)
+    padded = nt.lde_coefficients(
+        u64_to_tensor(trace), u64_to_tensor(rand), pack, scale, N
+    )
+    assert torch.equal(padded[:, : H + R], got)
+    assert not padded[:, H + R :].any()
+
+
+def test_stream_plan_root_and_sizes():
+    # S = 2^14: the kernel plan is the composed four-step transform
+    N, B = 1 << 16, 4
+    omega = jf.primitive_nth_root(N)
+    for kernel_ntt in (False, True):
+        plan = ts.make_stream_plan(N, B, omega, "cpu", kernel_ntt=kernel_ntt)
+        assert (plan["N"], plan["B"], plan["S"]) == (N, B, N // B)
+        if kernel_ntt:
+            assert (plan["pack_S"].r, plan["pack_S"].c) == (128, 128)
+        x = u64_to_tensor(
+            np.random.default_rng(1).integers(0, jf.P, (2, N // B),
+                                              dtype=np.uint64))
+        want = nt.ntt(x, jf.h_pow(omega, B))
+        assert torch.equal(kn.forward_ntt(x, plan["pack_S"]), want)
