@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
-                          [--stream-log2-cycles K]
+                          [--stream-log2-cycles K] [--mesh [RANKS]]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
@@ -48,10 +48,32 @@ line each; any failure raises and exits non-zero:
      path) proved resident (`stream_min` = 2^23) and streamed with 32 and
      with 2 classes, each on both NTT paths, all bytes equal, with launch
      counts, stage times and peak memory per prove;
-  8. the card's name and power limit, then the kernels line;
-  9. last line: {"ok": true, "device": {...}}.
+  8. the sharded prover (`mesh_shape`): the ranks of a mesh are worker
+     processes of `parallel/multihost.py` that share the one card (gloo,
+     exchanges staged through pinned host memory), the kernels built once
+     here before they start. dntt_check: `distributed_ntt` over 2 and 4
+     ranks at (27, 2^21) on both local routes, every rank's block equal to
+     the single-device u64 network's, exactly, with each rank's B2/B3
+     launches and the time of the torch copies left around them;
+     mesh_kernels: on each of 2 ranks, B2 in the two strided forms of the
+     distributed transform's local DFTs (19 and 27 rows), B3 with the rank's
+     offset tables, and B1 at the block's leaf, salt and tree-level sizes,
+     each against its plain version, exactly; mesh_bytes: the N=16384
+     program with `mesh_shape` 2 and 4, on cuda and on cpu, default and mxu, every rank's proof equal to step
+     5's single-device proof, one verified; mesh_prove: the 2^15-cycle
+     counter (FRI 2^21) on 2 ranks, default and mxu, a warm-up and a timed
+     prove each, bytes equal to step 6's, and per rank the stage times, the
+     bytes and seconds spent in collectives, peak device memory and
+     B1/B2/B3 launches (every rank must launch B1, and B2 and B3 under
+     mxu). A worker that fails makes the script exit non-zero;
+  9. the card's name and power limit, then the kernels line;
+  10. last line: {"ok": true, "device": {...}}.
 
-`--b2-sweep` and `--b2-parts` are measuring aids for kernel B2: after the
+`--mesh [RANKS]` leaves out the kernel checks of steps 3 and 4 and all of
+step 7, runs mesh_prove on RANKS ranks (2 by default) and stops before the
+kernels line. On a machine with a card for every rank the ranks take
+one each and the mesh runs on nccl. `--b2-sweep` and `--b2-parts` are
+measuring aids for kernel B2: after the
 build they time it under several tile shapes, or with its arithmetic or
 its memory traffic cut out of the source, print one JSON line each and
 stop before the checks. `--stream-log2-cycles K` is the same kind of aid
@@ -644,7 +666,8 @@ def full_proves(src, smi):
     in the same state. Launch counts are set to 0 just before each timed
     prove and read just after it; stage times and peak bytes are kept per
     prove. Every proof must equal the default path's warm-up bytes.
-    Returns ({path: (stark, args)}, {path: launch counts per prove})."""
+    Returns ({path: (stark, args)}, {path: launch counts per prove}, the
+    proof)."""
     paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"}}
     starks, warm, runs = {}, {}, {p: [] for p in paths}
     proof = None
@@ -687,7 +710,8 @@ def full_proves(src, smi):
              ntt_path=bfs.last_metrics["ntt_path"], proof_bytes=len(proof),
              verified=True, identical_to_default=True, runs=rs,
              nvidia_smi=smi)
-    return starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()}
+    return (starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()},
+            proof)
 
 
 def bytes_across_devices(phase, src, want=None, **config):
@@ -948,12 +972,312 @@ def stream_proves(log2_cycles, smi, plans):
     return runs
 
 
-def kernel_entry(name, source, replaces, launches, launches_streamed, rows,
-                 main, at):
+# ---------------------------------------------------------------------------
+# the sharded prover: what a rank (a worker process on the card) runs
+# ---------------------------------------------------------------------------
+
+MESH_DNTT_ROWS = NTT_ROWS["ext"]
+
+
+def rank_dntt(mesh, payload):
+    """`distributed_ntt_with` of (27, 2^21) seeded rows on both local
+    routes, each against the rank's block of the single-device u64
+    network; with the time of the torch copies left around the local DFTs
+    (the load of the rank's columns, and the packing and joining around the
+    two all-to-alls, from the mesh's own stats)."""
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import ntt as nt
+    from stark_brainfuck_tpu_torch.parallel import dntt
+
+    n = 1 << LOG2_FRI
+    root = f.primitive_nth_root(n)
+    v = random_field(MESH_DNTT_ROWS, n, 77)
+    lo, hi = mesh.block(n)
+    want = nt.ntt_with(v, nt.make_pack(n, root, False, "cuda"))
+    want = want[:, lo:hi].contiguous()
+    out = {}
+    for route in ("u64", "kernel"):
+        tables = dntt.make_dntt_tables(n, root, mesh, kernel=route == "kernel")
+        torch.cuda.synchronize()
+        reset_counts()
+        mesh.reset_stats()
+        t0 = time.time()
+        got = dntt.distributed_ntt_with(v, tables, mesh)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        c_lo, c_hi = mesh.block(tables.C)
+        out[route] = {
+            "max_abs_err": max_abs_err(got, want), "seconds": seconds,
+            "launches": read_counts(), "block": list(got.shape),
+            "factors": [tables.R, tables.C],
+            "twiddle_on_b3": tables.twiddle_plan is not None,
+            **mesh.stats_report(),
+            "local_columns_ms": cuda_ms(lambda: dntt._local_columns(
+                [v], tables.R, tables.C, c_lo, c_hi - c_lo), reps=5),
+        }
+        del got, tables
+    return out
+
+
+def rank_kernels(mesh, payload):
+    """The kernels at the shapes and in the forms that this rank's share of
+    the full-width mesh prove gives them, each against its plain version on
+    the same card tensors, exactly. B2: both local DFTs of the distributed
+    transform (`dntt._dft_middle`: the R-point one with its transposed
+    store, the C-point one in place of layout) for the 19 base and the 27
+    extension rows, against `subntt_tiled_plain` under the same strides and
+    against the u64 network. B3: the twiddle step with this rank's tables
+    (its column offset in the hi factor) against `twiddle_outer_plain` and
+    against the field multiply by the rank's plain table. B1: the block's
+    leaves, salts and tree levels against `blake2b_words_plain`. Times are
+    not taken: the ranks share the card."""
+    from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.parallel import dntt
+    from stark_brainfuck_tpu_torch.protocol import device_merkle as dm
+
+    n = 1 << LOG2_FRI
+    D = mesh.world
+    root = f.primitive_nth_root(n)
+    kern = dntt.make_dntt_tables(n, root, mesh, kernel=True)
+    u64 = dntt.make_dntt_tables(n, root, mesh)
+    assert kern.twiddle_plan is not None and u64.twiddle is not None
+    R, C = kern.R, kern.C
+    cl, rd = C // D, R // D
+    out = {"rank": mesh.rank, "factors": [R, C], "cases": []}
+
+    def case(kernel, want, **at):
+        got = read_counts()
+        assert got == {"b1": 0, "b2": 0, "b3": 0, **want}, (kernel, at, got)
+        out["cases"].append({"kernel": kernel, **at, "max_abs_err": 0.0})
+
+    for stage, rows in NTT_ROWS.items():
+        for dft, m, v, pack_k, pack_u, transposed in (
+                ("rows", R, cl, kern.pack_r, u64.pack_r, True),
+                ("columns", C, rd, kern.pack_c, u64.pack_c, False)):
+            x = random_field(rows * m, v, 80 + rows + m).view(rows, m, v)
+            reset_counts()
+            got = dntt._dft_middle(x, pack_k, transposed)
+            src = K.Strides(m * v, 1, v)
+            dst = K.Strides(m * v, m, 1) if transposed else src
+            plain = K.subntt_tiled_plain(x, pack_k.sub_r, rows, v, src, dst)
+            assert torch.equal(got.reshape(-1), plain.reshape(-1)), (
+                f"B2 differs from plain torch at the {dft} DFT ({stage})")
+            assert torch.equal(got, dntt._dft_middle(x, pack_u, transposed)), (
+                f"B2 differs from the u64 network at the {dft} DFT ({stage})")
+            case("subntt", {"b2": 1}, stage=stage, dft=dft,
+                 vectors=rows * v, m=m, transposed_store=transposed,
+                 tile=K.tile_shape(m, True))
+            del x, got, plain
+        y = random_field(rows * cl, R, 90 + rows)
+        reset_counts()
+        got = K.twiddle_outer(y, kern.twiddle_plan)
+        assert torch.equal(got, K.twiddle_outer_plain(y, kern.twiddle_plan)), (
+            f"B3 differs from plain torch at rank {mesh.rank} ({stage})")
+        assert torch.equal(
+            got.view(rows, cl, R),
+            f.mul(y.view(rows, cl, R), u64.twiddle[None])), (
+            f"B3's offset tables differ from the rank's twiddle columns "
+            f"at rank {mesh.rank} ({stage})")
+        case("twiddle_outer", {"b3": 1}, stage=stage,
+             rows=rows * cl, r=R, c=cl, column_offset=mesh.rank * cl,
+             hi_rows=int(kern.twiddle_plan.tw_hi.shape[0]))
+        del y, got
+    # the block's hashes: both leaf widths and the salt PRF at N/D leaves, a
+    # FRI round's leaves at half of that and at the smallest block, and the
+    # tree's levels from N/(2D) parents down to the rank's share of the top
+    nb = n // D
+    b1_cases = [(nb, 32, 176, "leaf"), (nb, 32, 240, "leaf"),
+                (nb, 16, 24, "salt"), (nb // 2, 16, 24, "leaf"),
+                (128, 16, 24, "leaf"), (nb // 2, 16, 128, "parents"),
+                (dm._HOST_CUT // D, 16, 128, "parents")]
+    for k, (count, W, msg_len, use) in enumerate(b1_cases):
+        words = random_messages(count, W, msg_len, seed=70 + k)
+        reset_counts()
+        if use == "parents":
+            got = B.merkle_parents(words.reshape(2 * count, 8))
+        else:
+            got = B.blake2b_words(words, msg_len)
+        plain = B.blake2b_words_plain(words, msg_len)
+        assert torch.equal(got, plain), (
+            f"B1 differs from plain torch at {(count, W, msg_len)}")
+        case("blake2b_words", {"b1": 1}, n=count, W=W,
+             msg_len=msg_len, use=use)
+        del words, got, plain
+    torch.cuda.synchronize()
+    return out
+
+
+def rank_proves(mesh, payload):
+    """Seeded proves of payload["src"] over the mesh of all ranks, one for
+    each NTT backend (after `warmups` untimed ones), on the rank's device."""
+    from stark_brainfuck_tpu_torch.parallel.multihost import env_device
+
+    out = {}
+    for backend in ("auto", "mxu"):
+        bfs, args = make_stark(
+            payload["src"], payload["seed"], env_device(),
+            trace=payload.get("trace"), ntt_backend=backend,
+            mesh_shape=(("shard", mesh.world),))
+        cuda = bfs.device.type == "cuda"
+        for _ in range(payload.get("warmups", 0)):
+            bfs.prove(*args)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        proof = bfs.prove(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        m = bfs.last_metrics
+        out[backend] = {
+            "digest": hashlib.sha256(proof).hexdigest(),
+            "proof": proof if mesh.rank == 0 and payload.get("keep") else None,
+            "prove_s": wall, "launches": read_counts(),
+            "ntt_path": m["ntt_path"], "hash_path": m["hash_path"],
+            "mesh": m["mesh"], "stages_s": m["stages_s"],
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None),
+            "peak_bytes_at_mark": m.get("peak_bytes_at_mark"),
+        }
+        del bfs
+    return out
+
+
+def spawn_on(device, target, world, payload, timeout=600):
+    from stark_brainfuck_tpu_torch.parallel.multihost import spawn_ranks
+
+    torch.cuda.empty_cache()
+    return spawn_ranks(
+        f"chip_smoke:{target}", world, payload, device=device,
+        timeout=timeout,
+        python_path=[os.path.dirname(os.path.abspath(__file__))])
+
+
+def dntt_check():
+    for world in (2, 4):
+        ranks = spawn_on("cuda", "rank_dntt", world, None)
+        for route in ("u64", "kernel"):
+            rs = [r[route] for r in ranks]
+            want = {"b1": 0, "b2": 2, "b3": 1} if route == "kernel" else {
+                "b1": 0, "b2": 0, "b3": 0}
+            for rank, r in enumerate(rs):
+                assert r["max_abs_err"] == 0.0, (
+                    f"dntt_check: rank {rank} of {world} differs ({route})")
+                assert r["launches"] == want, (world, route, rank, r)
+                assert r["block"] == [MESH_DNTT_ROWS, (1 << LOG2_FRI) // world]
+            emit("dntt_check", world=world, route=route,
+                 rows=MESH_DNTT_ROWS, n=1 << LOG2_FRI, max_abs_err=0.0,
+                 factors=rs[0]["factors"], twiddle_on_b3=rs[0]["twiddle_on_b3"],
+                 launches_per_rank=[r["launches"] for r in rs],
+                 seconds_per_rank=[r["seconds"] for r in rs],
+                 collective_s_per_rank=[r["collective_s"] for r in rs],
+                 collective_copy_s_per_rank=[r["collective_copy_s"]
+                                             for r in rs],
+                 local_columns_ms_per_rank=[r["local_columns_ms"]
+                                            for r in rs],
+                 collective_bytes_per_rank=[r["collective_bytes"] for r in rs])
+
+
+def mesh_kernels(world=2):
+    """B1, B2 and B3 on every rank of a `world`-rank mesh at the shapes of
+    the full-width mesh prove (`rank_kernels`): any difference raises in
+    the rank and fails the run."""
+    ranks = spawn_on("cuda", "rank_kernels", world, None)
+    assert [r["rank"] for r in ranks] == list(range(world))
+    for r in ranks:
+        names = {c["kernel"] for c in r["cases"]}
+        assert names == {"blake2b_words", "subntt", "twiddle_outer"}, names
+        for c in r["cases"]:
+            emit("mesh_kernels", world=world, rank=r["rank"],
+                 factors=r["factors"], **c)
+
+
+def mesh_bytes(src, want: bytes):
+    """The N=16384 program over 2 and 4 ranks, on the card and on the CPU,
+    default and mxu: every rank's bytes equal the single-device proof."""
+    digest = hashlib.sha256(want).hexdigest()
+    verified = False
+    for device in ("cuda", "cpu"):
+        for world in (2, 4):
+            ranks = spawn_on(device, "rank_proves", world,
+                             {"src": src, "seed": 7, "keep": not verified})
+            for backend in ("auto", "mxu"):
+                rs = [r[backend] for r in ranks]
+                for rank, r in enumerate(rs):
+                    assert r["digest"] == digest, (
+                        f"mesh_bytes: rank {rank} of {world} on {device} "
+                        f"({backend}) differs from the single-device proof")
+                    assert r["mesh"]["sharded_commit"], r["mesh"]
+                    if device == "cuda":
+                        assert r["launches"]["b1"] > 0, (world, rank, r)
+                        assert (r["launches"]["b2"] > 0) == (backend == "mxu")
+                if not verified:
+                    bfs, _ = make_stark(src, 7, "cpu")
+                    assert rs[0]["proof"] == want
+                    assert bfs.verify(rs[0]["proof"]), bfs.last_rejection
+                    verified = True
+                emit("mesh_bytes", device=device, world=world,
+                     ntt_backend=backend, ntt_path=rs[0]["ntt_path"],
+                     hash_path=rs[0]["hash_path"],
+                     backend=rs[0]["mesh"]["backend"],
+                     devices=rs[0]["mesh"]["devices"], identical=True,
+                     verified=True, prove_s_per_rank=[r["prove_s"] for r in rs],
+                     launches_per_rank=[r["launches"] for r in rs])
+
+
+def mesh_prove(src, want: bytes, smi, world=2):
+    """The full-width resident prove (FRI 2^21) on `world` ranks (sharing
+    the card where there is one), default and mxu: a warm-up and a timed
+    prove each. Returns each rank's launch counts, {backend: [counts of
+    rank 0, rank 1, ...]}."""
+    from stark_brainfuck_tpu_torch import VirtualMachine
+
+    trace = VirtualMachine.simulate(VirtualMachine.compile(src))
+    ranks = spawn_on("cuda", "rank_proves", world,
+                     {"src": src, "seed": 0, "trace": trace, "warmups": 1},
+                     timeout=900)
+    digest = hashlib.sha256(want).hexdigest()
+    launches = {}
+    for backend in ("auto", "mxu"):
+        rs = [r[backend] for r in ranks]
+        for rank, r in enumerate(rs):
+            assert r["digest"] == digest, (
+                f"mesh_prove: rank {rank} ({backend}) differs from full_prove")
+            c = r["launches"]
+            assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
+            assert (c["b2"], c["b3"]) == (
+                (4, 2) if backend == "mxu" else (0, 0)), (backend, rank, c)
+        launches[backend] = [r["launches"] for r in rs]
+        emit("mesh_prove", world=world, ntt_backend=backend,
+             ntt_path=rs[0]["ntt_path"], fri_domain=1 << LOG2_FRI,
+             trace_cycles=int(trace["processor"].shape[0]),
+             backend=rs[0]["mesh"]["backend"], devices=rs[0]["mesh"]["devices"],
+             identical_to_full_prove=True,
+             prove_s_per_rank=[r["prove_s"] for r in rs],
+             launches_per_rank=launches[backend],
+             collectives_per_rank=[r["mesh"]["collectives"] for r in rs],
+             collective_s_per_rank=[r["mesh"]["collective_s"] for r in rs],
+             collective_bytes_per_rank=[r["mesh"]["collective_bytes"]
+                                        for r in rs],
+             max_memory_allocated_per_rank=[r["max_memory_allocated"]
+                                            for r in rs],
+             stages_s_per_rank=[r["stages_s"] for r in rs],
+             peak_bytes_at_mark_per_rank=[r["peak_bytes_at_mark"] for r in rs],
+             nvidia_smi=smi)
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, launches_streamed,
+                 launches_mesh, rows, main, at):
     """One row of the kernels line: ms, plain_ms and bound at the main
     shape `rows[main]`, the largest error over every checked shape;
-    `launches` of the resident full-size prove and `launches_streamed` of
-    the streamed one (32 classes)."""
+    `launches` of the resident full-size prove, `launches_streamed` of the
+    streamed one (32 classes) and `launches_mesh` of one rank of the
+    2-rank mesh prove."""
     main_shape = rows[main]
     return {
         "name": name,
@@ -962,6 +1286,7 @@ def kernel_entry(name, source, replaces, launches, launches_streamed, rows,
         "replaces": replaces,
         "launches": launches,
         "launches_streamed": launches_streamed,
+        "launches_mesh_per_rank": launches_mesh,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -987,6 +1312,10 @@ def main():
                     help="after the build, prove a counter of 2^K cycles down "
                          "the streamed path (32 classes, both NTT paths), "
                          "and stop")
+    ap.add_argument("--mesh", type=int, nargs="?", const=2, metavar="RANKS",
+                    help="leave out the single-device kernel checks and the "
+                         "streamed prover, run mesh_prove on RANKS ranks "
+                         "(2), and stop before the kernels line")
     opts = ap.parse_args()
     if opts.stream_log2_cycles and not 16 <= opts.stream_log2_cycles <= 20:
         ap.error("--stream-log2-cycles takes 16..20: FRI 2^22 (the default "
@@ -1029,17 +1358,17 @@ def main():
                           stream_plans(STREAM_CLASSES[:1]))
         print(smi, flush=True)
         return
+    if not opts.mesh:
+        # 3. B1 against its plain version and hashlib at the prover's shapes
+        b1 = check_b1()
 
-    # 3. B1 against its plain version and hashlib at the prover's shapes
-    b1 = check_b1()
-
-    # 4. B2 / B3 against their plain versions; the composed transform
-    # against the u64 network
-    check_b2_every_size()
-    b2, b3 = check_ntt_kernels()
+        # 4. B2 / B3 against their plain versions; the composed transform
+        # against the u64 network
+        check_b2_every_size()
+        b2, b3 = check_ntt_kernels()
 
     # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
-    src = "+" * 8 + "[->++++[-]<]"
+    src = STREAM_SRC
     proof_small, _ = bytes_across_devices("bytes_across_devices", src)
     _, counts = bytes_across_devices(
         "bytes_across_devices_mxu", src, want=proof_small, ntt_backend="mxu"
@@ -1049,7 +1378,8 @@ def main():
     )
 
     # 6. full-size prove on the card, default and mxu NTT in turns
-    starks, launches = full_proves(counter_program(1 << LOG2_CYCLES), smi)
+    full_src = counter_program(1 << LOG2_CYCLES)
+    starks, launches, proof_full = full_proves(full_src, smi)
     for counts in launches["full_prove"]:
         assert (counts["b2"], counts["b3"]) == (0, 0), counts
     # one four-step transform per LDE stage: two sub-NTTs and one twiddle
@@ -1060,38 +1390,52 @@ def main():
     counts = launches["full_prove_mxu"][0]
     del starks
 
-    # 7. the streamed prover: bytes, checkpoints, kernels at its shapes,
-    # and the FRI 2^22 prove through the default stream_min
-    stream_bytes(proof_small)
-    stream_checkpoint(proof_small)
-    stream_kernels()
-    runs = stream_proves(STREAM_LOG2_CYCLES, smi,
-                         [("resident", {})] + stream_plans(STREAM_CLASSES))
-    assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
-    for run in runs[1:]:
-        assert run["launches"]["b1"] > runs[0]["launches"]["b1"], run
-    streamed = {"b1": runs[1]["launches"]["b1"], **{
-        k: runs[2]["launches"][k] for k in ("b2", "b3")}}
-    assert min(streamed.values()) > 0, streamed
+    if not opts.mesh:
+        # 7. the streamed prover: bytes, checkpoints, kernels at its shapes,
+        # and the FRI 2^22 prove through the default stream_min
+        stream_bytes(proof_small)
+        stream_checkpoint(proof_small)
+        stream_kernels()
+        runs = stream_proves(STREAM_LOG2_CYCLES, smi,
+                             [("resident", {})] + stream_plans(STREAM_CLASSES))
+        assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
+        for run in runs[1:]:
+            assert run["launches"]["b1"] > runs[0]["launches"]["b1"], run
+        streamed = {"b1": runs[1]["launches"]["b1"], **{
+            k: runs[2]["launches"][k] for k in ("b2", "b3")}}
+        assert min(streamed.values()) > 0, streamed
 
-    # 8. kernels line (ms at the prover's largest shape of each kernel)
+    # 8. the sharded prover: ranks are worker processes sharing the card
+    dntt_check()
+    mesh_kernels()
+    mesh_bytes(src, proof_small)
+    on_mesh = mesh_prove(full_src, proof_full, smi, world=opts.mesh or 2)
+    if opts.mesh:
+        print(smi, flush=True)
+        return
+    mesh_counts = {"b1": on_mesh["auto"][0]["b1"],
+                   "b2": on_mesh["mxu"][0]["b2"],
+                   "b3": on_mesh["mxu"][0]["b3"]}
+
+    # 9. kernels line (ms at the prover's largest shape of each kernel)
     # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
     # extension rows)
     kernels = [
         kernel_entry("blake2b_words", "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
                      "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
-                     launches["full_prove"][0]["b1"], streamed["b1"], b1, 3,
+                     launches["full_prove"][0]["b1"], streamed["b1"],
+                     mesh_counts["b1"], b1, 3,
                      ("n", "W", "msg_len")),
         kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
-                     counts["b2"], streamed["b2"], b2,
+                     counts["b2"], streamed["b2"], mesh_counts["b2"], b2,
                      next(i for i, row in enumerate(b2)
                           if (row["stage"], row["form"])
                           == ("ext", "rows_transposed")),
                      ("form", "rows", "m")),
         kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
-                     counts["b3"], streamed["b3"], b3, 1,
+                     counts["b3"], streamed["b3"], mesh_counts["b3"], b3, 1,
                      ("rows", "r", "c")),
     ]
     print(smi, flush=True)

@@ -2,10 +2,10 @@
 
 The same fields as the JAX package's `StarkConfig`, so a configuration
 carries across unchanged (`convert.config_from_fields`). This package runs
-the single-device, native-codec prover, resident below `stream_min` and
-streamed from it up; each option outside that (a mesh, the reference codec,
-the degree checks) raises `NotImplementedError` naming the ROADMAP item that
-will bring it.
+the native-codec prover, resident below `stream_min` and streamed from it
+up, on one device or (resident only) over the ranks of a mesh; each option
+outside that (the reference codec, the degree checks) raises
+`NotImplementedError` naming the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -30,7 +30,10 @@ class StarkConfig:
     # transcript codec: only "native" here
     codec: str = "native"
 
-    # device mesh for sharded proving: only None (one device) here
+    # mesh for sharded proving, e.g. (("shard", 4),): the product of the
+    # sizes is the number of ranks, which must be the world size of the
+    # initialised torch.distributed process group (one process per rank,
+    # parallel/multihost.py); None or one rank is the single-device prover
     mesh_shape: Optional[Tuple[Tuple[str, int], ...]] = None
 
     # commitments (Merkle leaves + tree levels) are built on the device
@@ -76,9 +79,13 @@ class StarkConfig:
             self.num_colinearity_checks * self.log_expansion_factor
             >= self.security_level
         ), "colinearity checks x log expansion must cover security level"
-        if self.mesh_shape:
-            raise NotImplementedError(
-                "mesh_shape: the sharded prover is ROADMAP Queue A item 8"
+        ranks = 1
+        for _, size in self.mesh_shape or ():
+            ranks *= int(size)
+        if ranks < 1 or ranks & (ranks - 1):
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape!r}: the number of ranks must "
+                f"be a power of two (blocks of a power-of-two domain)"
             )
         if self.codec == "ref":
             raise NotImplementedError(

@@ -55,6 +55,18 @@ def digest_words_to_planes(words: torch.Tensor):
     )
 
 
+def blocks_to_global(blocks, axis: int = 0) -> np.ndarray:
+    """Per-rank blocks of a sharded codeword (int64 tensors or u64 arrays,
+    in rank order, split along `axis`) -> the one u64 array the JAX package
+    holds for it: its sharded arrays are global, laid out as the blocks
+    joined in rank order."""
+    parts = [
+        tensor_to_u64(b) if torch.is_tensor(b) else np.asarray(b, np.uint64)
+        for b in blocks
+    ]
+    return np.concatenate(parts, axis=axis)
+
+
 def groups_to_tensors(groups, device=None):
     """Coefficient groups of the streamed prover (u64 arrays, as the JAX
     package holds them) -> the tuple of int64 tensors `protocol/stream.py`

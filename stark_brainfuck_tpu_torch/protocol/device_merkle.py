@@ -20,6 +20,16 @@ its compiled hash graph. The port has no counterpart: B1 reads the message
 tensor and writes the digests, nothing else, and a 2^26-leaf tree was built
 whole on an 80 GB card (PERF.md).
 
+Under a mesh (`parallel/mesh.py`) a tree is built in blocks: a rank hashes
+the leaves of its own block (salts drawn at its own leaf indices) and the
+levels of its own subtree, down to the level that has `_HOST_CUT` nodes in
+all; one all-gather joins that level, and every rank finishes the same top.
+An opening's rows, salts and siblings are gathered by the ranks that own
+them and joined in one all-gather (`prefetch_trees`), so every rank holds,
+and pushes, the same objects. The JAX package reaches the same sites
+through `to_host` (a replicate-then-read of an array the compiler
+partitioned).
+
 Salt words are (n, 3) int64 (the first three digest words of the salt PRF);
 their LE bytes are the 24-byte salt, identical to the JAX package's (n, 6)
 u32 layout. Tree shape matches ref merkle.py / salted_merkle.py.
@@ -65,15 +75,16 @@ def leaf_digests(rows, salts=None):
     return B.blake2b_words(torch.cat(parts, dim=1), 8 * nwords)
 
 
-def build_levels(rows, salts=None, cut: int = 0):
+def build_levels(rows, salts=None, cut: int = 0, stop: int = _HOST_CUT):
     """Whole-tree build over (n, k) rows (+ salts): the digest levels from
-    level `cut` up to the host cut. Levels below `cut` are computed and
-    dropped; `cut=0` returns the full leaf..cut ladder."""
+    level `cut` up to the one of `stop` nodes (the host cut; a rank's share
+    of it for a block of a sharded tree). Levels below `cut` are computed
+    and dropped; `cut=0` returns the full leaf..cut ladder."""
     d = leaf_digests(rows, salts)
     count = int(rows.shape[0])
     levels = [d] if cut == 0 else []
     level = 0
-    while count > max(_HOST_CUT, 1):
+    while count > max(stop, 1):
         d = B.merkle_parents(d)
         count //= 2
         level += 1
@@ -151,12 +162,20 @@ class DeviceMerkle:
     """Plain Merkle tree with device-side hashing: root / open like
     merkle.Merkle, plus batched `prefetch` and row access for building the
     opened leaf objects. With cut > 0 the bottom `cut` digest levels are
-    pruned (recomputed host-side per opening)."""
+    pruned (recomputed host-side per opening).
+
+    With `mesh`, `rows` (and `salts`, `levels`) are the rank's block of a
+    tree over world·n leaves: indices stay global, each rank gathers what it
+    owns, and the collectives join it (every rank must make the same
+    calls)."""
 
     salted = False
 
-    def __init__(self, rows, salts=None, levels=None, cut: Optional[int] = None):
-        n = int(rows.shape[0])
+    def __init__(self, rows, salts=None, levels=None, cut: Optional[int] = None,
+                 mesh=None):
+        self.mesh = mesh
+        world = 1 if mesh is None else mesh.world
+        n = int(rows.shape[0]) * world
         assert n & (n - 1) == 0 and n > _HOST_CUT
         if cut is None:
             cut = 0 if levels is not None else default_cut(n)
@@ -165,8 +184,10 @@ class DeviceMerkle:
         self.depth = (n - 1).bit_length()
         self.rows = rows
         self.salt_words = salts
+        # first leaf of the rank's block
+        self.first = 0 if mesh is None else mesh.block(n)[0]
         if levels is None:
-            levels = build_levels(rows, salts, cut)
+            levels = build_levels(rows, salts, cut, _HOST_CUT // world)
         self.levels = tuple(levels)  # level `cut`..host-cut, on the device
         self._finish_host_top()
         self._node_cache: Dict[Tuple[int, int], bytes] = {}
@@ -175,6 +196,9 @@ class DeviceMerkle:
 
     def _finish_host_top(self):
         top = self.levels[-1]
+        if self.mesh is not None:
+            top = self.mesh.all_gather(top, name="tree_top")
+            assert int(top.shape[0]) == _HOST_CUT, top.shape
         cut = int(top.shape[0])
         digests = B.digests_to_bytes(top)
         nodes = bytearray(2 * cut * HASH_LEN)
@@ -194,7 +218,10 @@ class DeviceMerkle:
     def prefetch_plan(self, indices: Iterable[int]):
         """Stage the device gathers a set of leaf openings needs: the
         2^cut-aligned leaf-row runs, salts, and sibling digests on the kept
-        device levels. Returns (plan, device tensors) for `prefetch_absorb`."""
+        device levels. Returns (plan, device tensors, counts) for
+        `prefetch_trees` and `prefetch_absorb`; under a mesh the tensors
+        hold what this rank owns of each gather and `counts` how many rows
+        of it each rank owns (None without a mesh)."""
         idx = sorted({int(i) for i in indices})
         cut = self.cut
         run_len = 1 << cut
@@ -208,18 +235,29 @@ class DeviceMerkle:
                 [s for s in sibs if (lvl, s) not in self._node_cache]
             )
 
-        dev = self.rows.device
-        gathered = []
+        gathered, counts = [], []
+
+        def gather(source, positions, lvl):
+            """Rows `positions` (global, sorted) of a level-`lvl` array."""
+            first, own = self.first >> lvl, int(source.shape[0])
+            mine = [p - first for p in positions if 0 <= p - first < own]
+            lidx = torch.tensor(mine, dtype=torch.int64, device=source.device)
+            gathered.append(source.index_select(0, lidx))
+            if self.mesh is not None:
+                per_rank = [0] * self.mesh.world
+                for p in positions:
+                    per_rank[p // own] += 1
+                counts.append(per_rank)
+
         if want_rows:
-            ridx = torch.tensor(want_rows, dtype=torch.int64, device=dev)
-            gathered.append(self.rows.index_select(0, ridx))
+            gather(self.rows, want_rows, 0)
             if self.salt_words is not None:
-                gathered.append(self.salt_words.index_select(0, ridx))
+                gather(self.salt_words, want_rows, 0)
         for j, sibs in enumerate(per_level):
             if sibs:
-                lidx = torch.tensor(sibs, dtype=torch.int64, device=dev)
-                gathered.append(self.levels[j].index_select(0, lidx))
-        return (want_rows, per_level), gathered
+                gather(self.levels[j], sibs, cut + j)
+        return (want_rows, per_level), gathered, (
+            counts if self.mesh is not None else None)
 
     def prefetch_absorb(self, plan, host):
         want_rows, per_level = plan
@@ -285,6 +323,9 @@ class DeviceMerkle:
             if lvl < self.cut:
                 # pruned level: fetch the covering run and rebuild
                 self.prefetch([pos << lvl])
+            elif self.mesh is not None:
+                # the node is the level-lvl sibling on its sibling's path
+                self.prefetch([(pos ^ 1) << lvl])
             else:
                 j = lvl - self.cut
                 self._node_cache[key] = B.digests_to_bytes(
@@ -321,28 +362,49 @@ class DeviceMerkle:
 
 def prefetch_trees(pairs):
     """Batched opening prefetch across several trees: stage every tree's
-    gathers, then bring them all to the host in one concatenated copy."""
+    gathers, then bring them all to the host in one concatenated copy. The
+    gathers of sharded trees (all of one mesh) are first joined across the
+    ranks, in one all-gather of what each rank owns."""
     plans = []
-    all_dev: List = []
+    local: List = []  # (slot, tensor)
+    shared: List = []  # (slot, tensor, rows of it per rank)
+    mesh = None
     for tree, indices in pairs:
-        plan, dev = tree.prefetch_plan(indices)
-        plans.append((tree, plan, len(dev)))
-        all_dev += dev
-    if not all_dev:
-        return
-    widths = [int(t.shape[1]) for t in all_dev]
-    counts = [int(t.shape[0]) for t in all_dev]
-    flat = torch.cat([t.reshape(-1) for t in all_dev])
-    flat_h = tensor_to_u64(flat)
-    host = []
-    pos = 0
-    for n, w in zip(counts, widths):
-        host.append(flat_h[pos : pos + n * w].reshape(n, w))
-        pos += n * w
-    pos = 0
-    for tree, plan, count in plans:
-        tree.prefetch_absorb(plan, host[pos : pos + count])
-        pos += count
+        plan, dev, counts = tree.prefetch_plan(indices)
+        first = len(local) + len(shared)
+        plans.append((tree, plan, first, len(dev)))
+        for j, t in enumerate(dev):
+            if counts is None:
+                local.append((first + j, t))
+            else:
+                mesh = tree.mesh
+                shared.append((first + j, t, counts[j]))
+    host = [None] * (len(local) + len(shared))
+    if local:
+        flat_h = tensor_to_u64(torch.cat([t.reshape(-1) for _, t in local]))
+        pos = 0
+        for slot, t in local:
+            host[slot] = flat_h[pos : pos + t.numel()].reshape(t.shape)
+            pos += t.numel()
+    if shared:
+        # a rank's words: its part of every gather, one after the other
+        words = [
+            sum(c[r] * int(t.shape[1]) for _, t, c in shared)
+            for r in range(mesh.world)
+        ]
+        flat = torch.cat([t.reshape(-1) for _, t, _ in shared])
+        flat_h = tensor_to_u64(
+            mesh.all_gather(flat, counts=words, name="openings"))
+        starts = [sum(words[:r]) for r in range(mesh.world)]
+        for slot, t, c in shared:
+            w = int(t.shape[1])
+            parts = []
+            for r in range(mesh.world):
+                parts.append(flat_h[starts[r] : starts[r] + c[r] * w])
+                starts[r] += c[r] * w
+            host[slot] = np.concatenate(parts).reshape(-1, w)
+    for tree, plan, first, count in plans:
+        tree.prefetch_absorb(plan, host[first : first + count])
 
 
 class DeviceSaltedMerkle(DeviceMerkle):
@@ -351,8 +413,9 @@ class DeviceSaltedMerkle(DeviceMerkle):
 
     salted = True
 
-    def __init__(self, rows, salt_words, levels=None, cut=None):
-        super().__init__(rows, salts=salt_words, levels=levels, cut=cut)
+    def __init__(self, rows, salt_words, levels=None, cut=None, mesh=None):
+        super().__init__(rows, salts=salt_words, levels=levels, cut=cut,
+                         mesh=mesh)
 
     def salt_at(self, index: int) -> bytes:
         if index not in self._salt_cache:

@@ -11,6 +11,16 @@ tree is built there (protocol/device_merkle.py, kernel B1 on the card).
 Shorter rounds finish on the host with hashlib trees. Only roots, query
 openings and the last codeword cross to the host; the transcript bytes are
 the host path's.
+
+Under a mesh (`parallel/mesh.py`) a round's codeword is in blocks, one a
+rank. The fold pairs index i with i + N/2, which live half the ranks apart:
+the rank that will own block j of the folded codeword pulls the two
+half-blocks it needs (`Mesh.fold_pairs`), so the result is again in
+contiguous blocks, and generates its 1/x_i row from its block's own start.
+Round trees are built in blocks. Once a round is shorter than `host_min`,
+or than `MIN_BLOCK` leaves a rank, it is gathered and every rank carries on
+as one device does from there. The JAX package marks each fold and its tree
+with a sharding constraint and finishes small rounds through `to_host`.
 """
 
 from __future__ import annotations
@@ -50,6 +60,19 @@ def _fold_device(codeword, alpha: tuple, omega: int, offset: int):
     ixs = f.geometric_rows(seeds[0:1], seeds[1:2], half)[0]
     alpha_t = u64_to_tensor(list(alpha), codeword.device)
     return _fold_math(codeword, alpha_t, ixs)
+
+
+def _fold_sharded(block, alpha: tuple, omega: int, offset: int, mesh):
+    """One fold round of a codeword held in blocks: `block` is this rank's
+    (n, 3) of the N = n·D values, the result its (n/2, 3) of the folded
+    ones, indices [rank·n/2, (rank+1)·n/2)."""
+    half = int(block.shape[0]) // 2
+    pairs = mesh.fold_pairs(block)
+    start = f.h_mul(f.h_inverse(offset),
+                    f.h_pow(f.h_inverse(omega), mesh.rank * half))
+    seeds = u64_to_tensor([start, f.h_inverse(omega)], block.device)
+    ixs = f.geometric_rows(seeds[0:1], seeds[1:2], half)[0]
+    return _fold_math(pairs, u64_to_tensor(list(alpha), block.device), ixs)
 
 
 class _DeviceTreeLeaves:
@@ -116,6 +139,7 @@ class Fri:
         codec=None,
         device_commit_min: int = 4096,
         host_min: Optional[int] = None,
+        mesh=None,
     ):
         from .channel import NativeCodec
 
@@ -126,6 +150,7 @@ class Fri:
         self.device_commit_min = device_commit_min
         # rounds shorter than this run on the host even mid-device-prove
         self.host_min = max(device_commit_min, host_min or 0)
+        self.mesh = mesh
         assert self.num_rounds() >= 1, "FRI needs at least one round"
 
     def num_rounds(self) -> int:
@@ -139,17 +164,22 @@ class Fri:
     # -- prover -------------------------------------------------------------
 
     def commit(self, codeword, proof_stream: ProofStream, on_device: bool,
-               tree0=None):
+               tree0=None, sharded: bool = False):
         """codeword: (N, 3) int64 tensor. `on_device` selects device trees
         while rounds are at least `host_min` long. `tree0` is the caller's
         commitment to the round-0 codeword (the STARK's combination tree),
-        reused instead of rebuilt. Returns (codewords, leaf-object lists,
-        trees)."""
+        reused instead of rebuilt. With `sharded`, `codeword` is this rank's
+        block of it (and `tree0` a tree built in blocks). Returns (round
+        lengths, leaf-object lists, trees)."""
         offset = self.domain.offset
         omega = self.domain.omega
+        mesh = self.mesh
         trees: List = []
-        codewords: List = []
+        lengths: List[int] = []
         leaf_objs: List = []
+        if sharded and not (on_device and self.domain.length >= self.host_min):
+            codeword = mesh.all_gather(codeword)
+            sharded = False
 
         # per-round wall time (commit side), surfaced as fri_round_s
         self.last_round_s: List[float] = []
@@ -157,7 +187,7 @@ class Fri:
 
         pending_tree = None  # device tree of the current codeword
         for r in range(self.num_rounds()):
-            N = int(codeword.shape[0])
+            N = self.domain.length >> r
             if on_device and N < self.host_min:
                 codeword = codeword.cpu()
                 on_device = False
@@ -173,27 +203,36 @@ class Fri:
                 pending_tree = None
                 objs = _DeviceTreeLeaves(tree)
             elif on_device:
-                tree = DeviceMerkle(codeword)
+                tree = DeviceMerkle(codeword, mesh=mesh if sharded else None)
                 objs = _DeviceTreeLeaves(tree)
             else:
                 objs = _LazyLeaves(tensor_to_u64(codeword))
                 tree = _host_tree(codeword)
             if r > 0:
                 proof_stream.push(tree.root())
+            lengths.append(N)
             if r == self.num_rounds() - 1:
                 leaf_objs.append(objs)
                 break
 
             alpha = xf.h_sample(proof_stream.prover_fiat_shamir())
-            codewords.append(codeword)
             leaf_objs.append(objs)
             trees.append(tree)
 
             half = N // 2
-            codeword = _fold_device(codeword, alpha, omega, offset)
+            if sharded:
+                codeword = _fold_sharded(codeword, alpha, omega, offset, mesh)
+                if half < self.host_min or not mesh.shardable(half):
+                    # too short for blocks: every rank takes the whole
+                    # codeword and goes on as one device does
+                    codeword = mesh.all_gather(codeword)
+                    sharded = False
+            else:
+                codeword = _fold_device(codeword, alpha, omega, offset)
             if on_device and half >= self.host_min and half > _HOST_CUT:
                 # the next round stays on the device: build its tree now
-                pending_tree = DeviceMerkle(codeword)
+                pending_tree = DeviceMerkle(
+                    codeword, mesh=mesh if sharded else None)
 
             omega = f.h_mul(omega, omega)
             offset = f.h_mul(offset, offset)
@@ -208,8 +247,7 @@ class Fri:
             last = [last[i] for i in range(len(last))]
             leaf_objs[-1] = last
         proof_stream.push(last)
-        codewords.append(codeword)
-        return codewords, leaf_objs, trees
+        return lengths, leaf_objs, trees
 
     def query(self, current_tree, next_tree, current_objs, next_objs,
               c_indices: List[int], proof_stream: ProofStream):
@@ -251,16 +289,17 @@ class Fri:
             proof_stream.push(current_tree.open(b_indices[s]))
 
     def prove(self, codeword, proof_stream: ProofStream, on_device: bool,
-              tree0=None) -> List[int]:
-        assert self.domain.length == codeword.shape[0]
-        codewords, leaf_objs, trees = self.commit(
-            codeword, proof_stream, on_device, tree0=tree0
+              tree0=None, sharded: bool = False) -> List[int]:
+        blocks = self.mesh.world if sharded else 1
+        assert self.domain.length == codeword.shape[0] * blocks
+        lengths, leaf_objs, trees = self.commit(
+            codeword, proof_stream, on_device, tree0=tree0, sharded=sharded
         )
 
         top_level_indices = sample_indices_fri(
             proof_stream.prover_fiat_shamir(),
-            codewords[1].shape[0] if len(codewords) > 1 else codewords[0].shape[0],
-            codewords[-1].shape[0],
+            lengths[1] if len(lengths) > 1 else lengths[0],
+            lengths[-1],
             self.num_colinearity_tests,
         )
         indices = list(top_level_indices)
@@ -270,7 +309,7 @@ class Fri:
         want = {}
         probe = list(top_level_indices)
         for i in range(len(trees)):
-            half = codewords[i].shape[0] // 2
+            half = lengths[i] // 2
             probe = [idx % half for idx in probe]
             s = want.setdefault(id(trees[i]), (trees[i], set()))[1]
             s.update(probe)
@@ -289,12 +328,12 @@ class Fri:
             prefetch_trees(batch)
 
         for i in range(len(trees) - 1):
-            indices = [idx % (codewords[i].shape[0] // 2) for idx in indices]
+            indices = [idx % (lengths[i] // 2) for idx in indices]
             self.query(
                 trees[i], trees[i + 1], leaf_objs[i], leaf_objs[i + 1],
                 indices, proof_stream,
             )
-        indices = [idx % codewords[-1].shape[0] for idx in indices]
+        indices = [idx % lengths[-1] for idx in indices]
         self.query_last(
             trees[-1], leaf_objs[len(trees) - 1], leaf_objs[-1], indices,
             proof_stream,

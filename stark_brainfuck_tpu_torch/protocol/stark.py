@@ -3,8 +3,9 @@
 Protocol flow and transcript order match ref `brainfuck_stark.py:20-579`
 (base commit → challenges → extend → ext commit → quotients → terminals →
 weights → combination commit → indices → openings → FRI), and a seeded
-proof is byte-identical to the JAX package's. This is the single-device,
-native-codec prover:
+proof is byte-identical to the JAX package's. This is the native-codec
+prover, on one device or, with `mesh_shape`, on the ranks of a
+`torch.distributed` process group:
 
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
@@ -17,6 +18,18 @@ native-codec prover:
     and extension codewords never exist, only their coefficient rows;
     commitments, the combination and the openings are computed per strided
     class (`protocol/stream.py`), with the same transcript bytes;
+  - with `StarkConfig(mesh_shape=(("shard", D),))` every rank of the
+    process group runs this same `prove` (one process per rank, the same
+    seeded host logic and transcript) and holds the block
+    [rank·N/D, (rank+1)·N/D) of every codeword: the LDE is the distributed
+    four-step NTT (`parallel/dntt.py`), the zerofier rows and x^s rows
+    start at the block's own domain point, the transition's row shift is a
+    roll across ranks, commitments are trees built in blocks
+    (`protocol/device_merkle.py`) and FRI folds pull their pairs
+    (`protocol/fri.py`); trace-height work is replicated. Every rank
+    returns the same bytes as one device does. Where the JAX package marks
+    arrays with `_shard` and lets its compiler insert the collectives, each
+    exchange here is a call into `parallel/mesh.py`;
   - the verifier recomputes the quotients with the same constraint
     builders over CPU tensors (one lane per query index);
   - hashing of transcript objects stays on the host.
@@ -24,6 +37,7 @@ native-codec prover:
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -43,6 +57,8 @@ from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
 from ..ops import scan as sc
 from ..ops import xfield as xf
+from ..parallel import dntt as dn
+from ..parallel.mesh import codeword_block, make_mesh, mesh_size
 from ..utils.checkpoint import (
     load_commit_stage,
     proof_key,
@@ -65,7 +81,6 @@ from .channel import (
 from .device_merkle import (
     DeviceMerkle,
     DeviceSaltedMerkle,
-    build_levels,
     default_cut,
     prefetch_trees,
     prf_field_words,
@@ -121,8 +136,13 @@ class BrainfuckStark:
         device=None,
     ):
         self.config = (config or StarkConfig()).validate()
-        self.device = resolve_device(device)
         cfg = self.config
+        # a mesh of one rank is the single-device prover; a larger one must
+        # be the initialised process group, and gives the rank its device
+        ranks = mesh_size(cfg.mesh_shape)
+        self.mesh = make_mesh(ranks, device=device) if ranks > 1 else None
+        self.device = (resolve_device(device) if self.mesh is None
+                       else self.mesh.device)
         self.running_time = running_time
         self.memory_length = memory_length
         self.program = list(program)
@@ -163,6 +183,12 @@ class BrainfuckStark:
         fri_domain_length = (self.max_degree + 1) * cfg.expansion_factor
         # the streamed prover takes over from here up
         self.use_stream = fri_domain_length >= cfg.stream_min
+        if self.mesh is not None and self.use_stream:
+            raise ValueError(
+                f"mesh_shape with a streamed domain ({fri_domain_length} >= "
+                f"stream_min {cfg.stream_min}): the streamed prover is not "
+                f"partitioned over a mesh"
+            )
         self.last_commit_resumes: List[str] = []
 
         self.codec = make_codec(cfg.codec)
@@ -175,6 +201,7 @@ class BrainfuckStark:
             codec=self.codec,
             device_commit_min=cfg.device_commit_min,
             host_min=cfg.fri_host_min,
+            mesh=self.mesh,
         )
 
     # ------------------------------------------------------------------
@@ -204,7 +231,9 @@ class BrainfuckStark:
         """Per-table-height zerofier-inverse tensors over the FRI domain:
         boundary 1/(x - 1); transition (x - o^{-1})/(x^H - 1) (all-zero when
         H == 0, as ref table.py:196-199); terminal 1/(x - o^{-1}). Cached
-        on the instance — they depend only on heights and the domain."""
+        on the instance — they depend only on heights and the domain. Under
+        a mesh, the rank's block of each: the domain slice starts at
+        offset·ω^lo, and the periodic table is cut or repeated to it."""
         cache = getattr(self, "_zinv_cache", None)
         if cache is not None:
             return cache
@@ -222,7 +251,10 @@ class BrainfuckStark:
             return u64_to_tensor([v], dev)
 
         one = f.const(1, torch.empty(0, device=dev))
-        domain = f.geometric_rows(scalar(offset), scalar(omega), N)[0]
+        lo, n = self._block()
+        domain = f.geometric_rows(
+            scalar(f.h_mul(offset, f.h_pow(omega, lo))), scalar(omega), n
+        )[0]
         boundary = f.batch_inverse(f.sub(domain, one))
         out = {}
         for h in heights:
@@ -237,11 +269,13 @@ class BrainfuckStark:
                     period,
                 )[0]
                 sub_inv_small = f.batch_inverse(f.sub(xs, one))
-                transition = f.mul(
-                    sub_inv_small.repeat(N // period), x_minus_oinv
-                )
+                if period <= n:
+                    periodic = sub_inv_small.repeat(n // period)
+                else:
+                    periodic = sub_inv_small[lo % period :][:n]
+                transition = f.mul(periodic, x_minus_oinv)
             else:
-                transition = torch.zeros((N,), dtype=torch.int64, device=dev)
+                transition = torch.zeros((n,), dtype=torch.int64, device=dev)
             out[h] = {
                 "boundary": boundary,
                 "transition": transition,
@@ -250,14 +284,43 @@ class BrainfuckStark:
         self._zinv_cache = out
         return out
 
+    def _block(self):
+        """(first index, length) of this rank's block of the FRI domain:
+        the whole domain without a mesh."""
+        N = self.fri.domain.length
+        if self.mesh is None:
+            return 0, N
+        lo, hi = self.mesh.block(N)
+        return lo, hi - lo
+
+    def _sharded_commit(self) -> bool:
+        """Whether commitments are trees built in blocks: under a mesh, from
+        `device_commit_min` up, while each rank keeps enough leaves. Else
+        the codeword is gathered and every rank builds the whole tree."""
+        N = self.fri.domain.length
+        return (self.mesh is not None and N >= self.config.device_commit_min
+                and self.mesh.shardable(N))
+
     def _ntt_path(self) -> str:
         """The forward-LDE NTT that `ntt_backend` resolves to: the four-step
         transform on kernels B2/B3 for "mxu" (their plain torch versions on
-        the CPU), else the u64 butterfly network."""
+        the CPU), else the u64 butterfly network. Under a mesh the same
+        names the local route of the distributed transform's two DFTs."""
         if self.config.ntt_backend != "mxu":
             return "u64-torch"
         return ("four-step-cuda" if self.device.type == "cuda"
                 else "four-step-plain")
+
+    def _mesh_ntt_path(self) -> str:
+        """`_ntt_path`, with what a mesh adds: `dntt-mesh` for the
+        distributed four-step transform, or `replicated` where the ranks do
+        not divide both of its factors and, as in the JAX package, every
+        rank runs the single-device transform (and keeps its block)."""
+        if self.mesh is None:
+            return self._ntt_path()
+        how = ("dntt-mesh" if dn.divides(self.fri.domain.length,
+                                         self.mesh.world) else "replicated")
+        return f"{how}:{self._ntt_path()}"
 
     def _lde_packs(self):
         """NTT twiddle and coset scale tables on the device, cached per
@@ -269,10 +332,19 @@ class BrainfuckStark:
         dev = self.device
         fri = self.fri
         N = fri.domain.length
+        dntt = None
         if self.use_stream:
             # a streamed prove runs no N-point transform (size-S class NTTs
             # and height-sized INTTs only): its tables are `_stream_plan`'s
             fwd = None
+        elif self.mesh is not None and dn.divides(N, self.mesh.world):
+            # the rank's tables of the distributed transform: no N-point
+            # pack and no N-word twiddle table
+            fwd = None
+            dntt = dn.make_dntt_tables(
+                N, fri.domain.omega, self.mesh, dev,
+                kernel=path != "u64-torch",
+            )
         elif path == "u64-torch":
             fwd = nt.make_pack(N, fri.domain.omega, False, dev)
         else:
@@ -281,6 +353,7 @@ class BrainfuckStark:
             fwd = kn.make_kernel_plan(N, fri.domain.omega, False, dev)
         packs = {
             "fwd": fwd,
+            "dntt": dntt,
             "rand_scale": nt.scale_table(
                 fri.domain.offset, self.max_degree + 1, dev
             ),
@@ -305,25 +378,10 @@ class BrainfuckStark:
         """Randomizer codeword + per-table base codewords. All coefficient
         rows (randomizer limbs + every table's base columns) go through ONE
         shared forward NTT of the FRI domain size."""
-        N = self.fri.domain.length
-        dev = self.device
-        rand_coeffs = rand_coeffs.reshape(-1, 3)
-        rows = [
-            nt._pad_to(
-                f.mul(rand_coeffs.movedim(-1, 0),
-                      packs["rand_scale"][: rand_coeffs.shape[0]]),
-                N,
-            )
-        ]
-        for i, (t, m, r) in enumerate(zip(self.tables, mats, base_rands)):
-            if t.height == 0:
-                rows.append(
-                    torch.zeros((t.base_width, N), dtype=torch.int64, device=dev)
-                )
-            else:
-                tp = packs["tables"][i]
-                rows.append(nt.lde_coefficients(m.T, r, tp[0], tp[1], N))
-        all_cws = kn.forward_ntt(torch.cat(rows, dim=0), packs["fwd"])
+        all_cws = self._forward_lde(
+            self._stage_base_coeffs(mats, rand_coeffs, base_rands, packs),
+            packs,
+        )
         rand_cw = all_cws[:3].movedim(0, -1)  # (N, 3)
         base_cws = []
         pos = 3
@@ -331,6 +389,20 @@ class BrainfuckStark:
             base_cws.append(all_cws[pos : pos + t.base_width])
             pos += t.base_width
         return rand_cw, tuple(base_cws)
+
+    def _forward_lde(self, groups, packs):
+        """The shared forward NTT of an LDE stage over coefficient groups of
+        different lengths (zero past their own): on one device the groups
+        are padded to the domain and go through `forward_ntt`; under a mesh
+        they go through the distributed transform and the rank's block
+        (rows, N/D) comes back."""
+        N = self.fri.domain.length
+        if packs["dntt"] is not None:
+            return dn.distributed_ntt_with(groups, packs["dntt"], self.mesh)
+        all_cws = kn.forward_ntt(
+            torch.cat([nt._pad_to(g, N) for g in groups], dim=0), packs["fwd"]
+        )
+        return codeword_block(self.mesh, all_cws, 1).contiguous()
 
     def _device_extend(self, mats, challenges_arr, initials_arr):
         """All tables' extension columns as ONE batched affine scan.
@@ -354,7 +426,7 @@ class BrainfuckStark:
     def _stage_ext_lde(self, xcols, ext_rands, packs):
         """Extension LDE over the extension columns; all tables share one
         batched forward NTT like the base stage."""
-        N = self.fri.domain.length
+        _, N = self._block()  # the rank's block under a mesh
         dev = self.device
         rows = []
         layout = []  # (table_index, n_ext) in order
@@ -370,9 +442,9 @@ class BrainfuckStark:
             if r is not None:
                 # (n_ext, R, 3) -> (n_ext*3, R), limb-major per column
                 rr = r.movedim(-1, 1).reshape((-1, r.shape[1]))
-            rows.append(nt.lde_coefficients(trace, rr, tp[0], tp[1], N))
+            rows.append(nt.lde_coefficients_unpadded(trace, rr, tp[0], tp[1]))
             layout.append((i, t.num_ext_columns))
-        all_cws = kn.forward_ntt(torch.cat(rows, dim=0), packs["fwd"])
+        all_cws = self._forward_lde(rows, packs)
         ext_cws = []
         pos = 0
         for i, n_ext in layout:
@@ -422,16 +494,26 @@ class BrainfuckStark:
         alg = ArrayAlgebra(self.device)
         ch_vals = [alg.x(challenges[i]) for i in range(11)]
         tm_vals = [alg.x(terminals[i]) for i in range(5)]
+        N = self.fri.domain.length
+        sharded = ud is None and self.mesh is not None
         if ud is None:
-            ud = t.unit_distance(self.fri.domain.length)
+            ud = t.unit_distance(N)
 
         def rot(arr):
-            return torch.roll(arr, -ud, 0) if ud else arr
+            """Rows shifted by the unit distance along axis 1; over the
+            whole domain under a mesh, where the shift may exceed a block
+            and the rows come from other ranks."""
+            if not ud:
+                return arr
+            if sharded:
+                return self.mesh.roll(arr, ud, 1, N)
+            return torch.roll(arr, -ud, 1)
 
+        base_next, ext_next = rot(base_cw), rot(ext_cw)
         point = [alg.base(base_cw[j]) for j in range(t.base_width)]
         point += [alg.x(ext_cw[j]) for j in range(t.num_ext_columns)]
-        point_next = [alg.base(rot(base_cw[j])) for j in range(t.base_width)]
-        point_next += [alg.x(rot(ext_cw[j])) for j in range(t.num_ext_columns)]
+        point_next = [alg.base(base_next[j]) for j in range(t.base_width)]
+        point_next += [alg.x(ext_next[j]) for j in range(t.num_ext_columns)]
         q = t.quotients(alg, point, point_next, ch_vals, tm_vals, zinv)
         return torch.stack(q, dim=0)
 
@@ -715,11 +797,16 @@ class BrainfuckStark:
         The quotient codewords never leave it: only the combination is
         committed, and the verifier recomputes quotients from openings."""
         dev = self.device
-        N = self.fri.domain.length
-        ratios = u64_to_tensor(
-            [f.h_pow(self.fri.domain.omega, int(s)) for s in shifts], dev
+        omega = self.fri.domain.omega
+        # under a mesh the rank's block: N points from index lo, whose x^s
+        # rows start at (offset·ω^lo)^s with the unchanged ratio ω^s
+        lo, N = self._block()
+        ratios = u64_to_tensor([f.h_pow(omega, int(s)) for s in shifts], dev)
+        opows = u64_to_tensor(
+            [f.h_mul(int(p), f.h_pow(omega, lo * int(s)))
+             for p, s in zip(offset_pows, shifts)] if lo else offset_pows,
+            dev,
         )
-        opows = u64_to_tensor(offset_pows, dev)
         w0 = u64_to_tensor(weights_h[0], dev)
         w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
         zinv = self._zerofier_inverses()
@@ -728,7 +815,8 @@ class BrainfuckStark:
             count = stack.shape[0]
             sl = slice(start, start + count)
             return (
-                self._acc_group(acc, stack, w_pairs[sl], ratios[sl], opows[sl]),
+                self._acc_group(acc, stack, w_pairs[sl], ratios[sl], opows[sl],
+                                length=N),
                 start + count,
             )
 
@@ -771,7 +859,16 @@ class BrainfuckStark:
     ) -> bytes:
         cfg = self.config
         dev = self.device
-        rng = Rng(cfg.seed)
+        mesh = self.mesh
+        seed = cfg.seed
+        if mesh is not None:
+            mesh.reset_stats()
+            if seed is None:
+                # the ranks agree only while every Fiat-Shamir input is the
+                # same: an unseeded mesh prove runs on rank 0's fresh seed
+                seed = int.from_bytes(
+                    mesh.broadcast_bytes(os.urandom(16), 16), "little")
+        rng = Rng(seed)
         fri = self.fri
         N = fri.domain.length
         timer = StageTimer(dev)
@@ -811,6 +908,7 @@ class BrainfuckStark:
         )
         packs = self._lde_packs()
         device_commit = N >= cfg.device_commit_min
+        sharded_commit = self._sharded_commit()
         if use_stream:
             # streamed mode: only coefficient groups persist (see
             # protocol/stream.py); the transcript equals the resident one
@@ -905,7 +1003,8 @@ class BrainfuckStark:
             _mark("ext merkle (streamed)")
         else:
             zipped_ext = torch.cat(
-                [cw.movedim(0, 1).reshape(N, -1) for cw in ext_codewords],
+                [cw.movedim(0, 1).reshape(cw.shape[1], -1)
+                 for cw in ext_codewords],
                 dim=1,
             )  # (N, 3 * num_ext_columns)
             ext_tree, ext_row = self._salted_commit(
@@ -967,11 +1066,12 @@ class BrainfuckStark:
         _mark("stage_c (quotients+combination)")
 
         # 13. commit to the combination codeword (ref :301-302)
+        if mesh is not None and not sharded_commit:
+            combination = mesh.all_gather(combination)
         if device_commit:
-            comb_cut = default_cut(N)
             combination_tree = DeviceMerkle(
-                combination, levels=build_levels(combination, None, comb_cut),
-                cut=comb_cut,
+                combination, cut=default_cut(N),
+                mesh=mesh if sharded_commit else None,
             )
             comb_row = combination_tree.row_at
             _mark("combination merkle (device)")
@@ -1040,7 +1140,7 @@ class BrainfuckStark:
         # 17. FRI (ref :336)
         self.fri.prove(
             combination, proof_stream, on_device=device_commit,
-            tree0=combination_tree,
+            tree0=combination_tree, sharded=sharded_commit,
         )
         _mark("fri.prove")
 
@@ -1058,7 +1158,10 @@ class BrainfuckStark:
             hash_leaves=hash_leaves,
             fri_round_s=self.fri.last_round_s,
             device=str(dev),
-            ntt_path=self._ntt_path(),
+            mesh=(None if mesh is None
+                  else {**mesh.describe(), **mesh.stats_report(),
+                        "sharded_commit": sharded_commit}),
+            ntt_path=self._mesh_ntt_path(),
             stream_classes=splan["B"] if use_stream else None,
             stream_block=splan["S"] if use_stream else None,
             hash_path=(
@@ -1074,15 +1177,27 @@ class BrainfuckStark:
 
     def _salted_commit(self, zipped, key):
         """Salted Merkle commitment to the rows of `zipped` (N, k): a device
-        tree from `device_commit_min` up, else a host hashlib tree. Returns
-        (tree, row accessor)."""
-        N = int(zipped.shape[0])
+        tree from `device_commit_min` up, else a host hashlib tree. Under a
+        mesh `zipped` is the rank's block: the tree is built in blocks, with
+        the salts of the rank's own leaf indices, while a block keeps enough
+        leaves; else the rows are gathered first. Returns (tree, row
+        accessor)."""
+        mesh = self.mesh
+        N = self.fri.domain.length
+        device_commit = N >= self.config.device_commit_min
+        if self._sharded_commit():
+            lo, n = self._block()
+            salts = salt_words_device(
+                key, n, indices=torch.arange(lo, lo + n, dtype=torch.int64,
+                                             device=zipped.device))
+            tree = DeviceSaltedMerkle(zipped, salts, cut=default_cut(N),
+                                      mesh=mesh)
+            return tree, tree.row_at
+        if mesh is not None:
+            zipped = mesh.all_gather(zipped)
         salts = salt_words_device(key, N)
-        if N >= self.config.device_commit_min:
-            cut = default_cut(N)
-            tree = DeviceSaltedMerkle(
-                zipped, salts, levels=build_levels(zipped, salts, cut), cut=cut
-            )
+        if device_commit:
+            tree = DeviceSaltedMerkle(zipped, salts, cut=default_cut(N))
             return tree, tree.row_at
         rows = tensor_to_u64(zipped)
         salt_buf = SaltBuffer(salt_words_to_buffer(salts))

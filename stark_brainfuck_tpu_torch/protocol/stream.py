@@ -147,6 +147,7 @@ class StreamedMerkle(DeviceMerkle):
         if 1 << cut != num_classes:
             raise ValueError("class count must be a power of two")
         self.cut = cut
+        self.mesh = None
         self.num_leafs = n
         self.num_classes = num_classes
         self.depth = (n - 1).bit_length()
@@ -205,7 +206,7 @@ class StreamedMerkle(DeviceMerkle):
                 lidx = torch.tensor(sibs, dtype=torch.int64,
                                     device=level.device)
                 gathered.append(level.index_select(0, lidx))
-        return ([], per_level), gathered
+        return ([], per_level), gathered, None
 
 
 class StreamedSaltedMerkle(StreamedMerkle):
