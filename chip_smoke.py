@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
-                          [--stream-log2-cycles K] [--mesh [RANKS]]
+                          [--stream-log2-cycles K] [--ref-codec]
+                          [--mesh [RANKS]]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
@@ -48,7 +49,24 @@ line each; any failure raises and exits non-zero:
      path) proved resident (`stream_min` = 2^23) and streamed with 32 and
      with 2 classes, each on both NTT paths, all bytes equal, with launch
      counts, stage times and peak memory per prove;
-  8. the sharded prover (`mesh_shape`): the ranks of a mesh are worker
+  8. the other paths of the main path's kernels: ref_codec_bytes: the
+     N=16384 program with `codec="ref"` (host trees over pickled leaf
+     objects; B1 still runs the salt and randomizer PRFs), the same bytes on
+     cuda on both NTT paths and on cpu, verified, B1 launched (and B2/B3
+     under mxu), not the native bytes; ref_codec_golden: a stark on the
+     card accepts the reference prover's proof tests/vectors/
+     ref_proof_plus4.bin and rejects it with a terminal changed;
+     ref_codec_prove: a counter of about 2^10 cycles (FRI 2^16) under the
+     reference codec, one timed prove and verify with its stage times;
+     debug_degrees: the N=16384 program with `debug_degree_checks=True`,
+     bytes equal to step 5's; poly_toolbox: `ops/fastpoly.py` on cuda equal
+     to cpu and to `ops/poly.py` (interpolate, evaluate, coset division);
+     soundness_params: security level 128 at
+     expansion 16 (32 colinearity checks, the most its FRI allows), a
+     FRI-2^14 program equal on cuda and cpu on both NTT paths, then a
+     counter of 2^13 cycles (FRI 2^21, resident), one timed prove on each
+     NTT path, same bytes, verified;
+  9. the sharded prover (`mesh_shape`): the ranks of a mesh are worker
      processes of `parallel/multihost.py` that share the one card (gloo,
      exchanges staged through pinned host memory), the kernels built once
      here before they start. dntt_check: `distributed_ntt` over 2 and 4
@@ -66,11 +84,12 @@ line each; any failure raises and exits non-zero:
      bytes and seconds spent in collectives, peak device memory and
      B1/B2/B3 launches (every rank must launch B1, and B2 and B3 under
      mxu). A worker that fails makes the script exit non-zero;
-  9. the card's name and power limit, then the kernels line;
-  10. last line: {"ok": true, "device": {...}}.
+  10. the card's name and power limit, then the kernels line;
+  11. last line: {"ok": true, "device": {...}}.
 
-`--mesh [RANKS]` leaves out the kernel checks of steps 3 and 4 and all of
-step 7, runs mesh_prove on RANKS ranks (2 by default) and stops before the
+`--ref-codec` runs step 5 and then only step 8, and stops before the
+kernels line. `--mesh [RANKS]` leaves out the kernel checks of steps 3 and
+4 and all of steps 7 and 8, runs mesh_prove on RANKS ranks (2 by default) and stops before the
 kernels line. On a machine with a card for every rank the ranks take
 one each and the mesh runs on nccl. `--b2-sweep` and `--b2-parts` are
 measuring aids for kernel B2: after the
@@ -973,6 +992,210 @@ def stream_proves(log2_cycles, smi, plans):
 
 
 # ---------------------------------------------------------------------------
+# the reference codec, the DEBUG degree checks, other soundness parameters
+# ---------------------------------------------------------------------------
+
+GOLDEN_REF_PROOF = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "vectors",
+    "ref_proof_plus4.bin")
+REF_PROVE_LOG2_CYCLES = 10  # FRI 2^16 under the reference codec
+# the most the FRI last codeword (2 x expansion values) allows at expansion
+# 16: 32 colinearity checks; security level 160 needs expansion 32
+SOUNDNESS = {"security_level": 128, "log_expansion_factor": 4}
+SOUNDNESS_SRC = "++++[->++<]"  # FRI 2^14 at SOUNDNESS
+SOUNDNESS_LOG2_CYCLES = 13  # FRI 2^21 at SOUNDNESS, resident
+
+
+def timed_prove(bfs, args):
+    """One prove on the card with the launch counts set to 0 just before
+    it and read just after. Returns (proof, seconds, counts)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    proof = bfs.prove(*args)
+    torch.cuda.synchronize()
+    return proof, time.time() - t0, read_counts()
+
+
+def ref_codec_bytes(native_proof):
+    """The N=16384 program under `codec="ref"`: the same bytes on cuda on
+    both NTT paths and on cpu (one prove: the bytes do not depend on the
+    path); every proof verifies; the card ran B1 for the salt and
+    randomizer PRFs (the trees are hashlib host trees over pickled leaves)
+    and B2/B3 under mxu; the bytes differ from the native proof. Returns
+    the launches of B1 on the default path's prove and of B2/B3 on the mxu
+    path's."""
+    proof, launches = None, {}
+    for backend in ("auto", "mxu"):
+        bfs, args = make_stark(STREAM_SRC, 7, "cuda", codec="ref",
+                               ntt_backend=backend)
+        got, wall, counts = timed_prove(bfs, args)
+        proof = proof or got
+        launches.update({"b1": counts["b1"]} if backend == "auto" else
+                        {"b2": counts["b2"], "b3": counts["b3"]})
+        assert got == proof, "ref_codec_bytes: the NTT paths differ"
+        assert got != native_proof, "ref_codec_bytes: equals the native proof"
+        assert bfs.verify(got), bfs.last_rejection
+        assert counts["b1"] > 0, counts
+        assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "mxu")
+        emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
+             fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
+             prove_s=wall, launches=counts, verified=True,
+             ntt_path=bfs.last_metrics["ntt_path"],
+             hash_path=bfs.last_metrics["hash_path"],
+             stages_s=bfs.last_metrics["stages_s"])
+    bfs, args = make_stark(STREAM_SRC, 7, "cpu", codec="ref")
+    t0 = time.time()
+    got = bfs.prove(*args)
+    wall = time.time() - t0
+    assert got == proof, "ref_codec_bytes: cuda and cpu proofs differ"
+    assert bfs.verify(got), bfs.last_rejection
+    emit("ref_codec_bytes", device="cpu", fri_domain=bfs.fri.domain.length,
+         proof_bytes=len(got), prove_s=wall, identical=True, verified=True)
+    return launches
+
+
+def ref_codec_golden():
+    """A stark on the card accepts the reference prover's proof of `++++`
+    and rejects it with one terminal changed."""
+    import pickle
+
+    from stark_brainfuck_tpu_torch.interop.ref_shims import ensure_ref_modules
+
+    golden = open(GOLDEN_REF_PROOF, "rb").read()
+    bfs, _ = make_stark("++++", 0, "cuda", codec="ref")
+    t0 = time.time()
+    assert bfs.verify(golden), bfs.last_rejection
+    wall = time.time() - t0
+    ensure_ref_modules()
+    objects = pickle.loads(golden)
+    coeff = objects[2].polynomial.coefficients[0]
+    coeff.value = (coeff.value + 1) % 0xFFFFFFFF00000001
+    assert not bfs.verify(pickle.dumps(objects)), "tampered golden accepted"
+    emit("ref_codec_golden", proof_bytes=len(golden),
+         fri_domain=bfs.fri.domain.length, verify_s=wall, accepted=True,
+         tampered_rejected=True, rejection=bfs.last_rejection)
+
+
+def ref_codec_prove(smi):
+    """A counter of about 2^10 cycles (FRI 2^16) under the reference codec:
+    one timed prove and its verify, with the stage times (the host's share
+    is the pickling and hashing of the three trees and FRI's rounds)."""
+    src = counter_program(1 << REF_PROVE_LOG2_CYCLES)
+    bfs, args = make_stark(src, 0, "cuda", codec="ref")
+    proof, wall, counts = timed_prove(bfs, args)
+    t0 = time.time()
+    assert bfs.verify(proof), bfs.last_rejection
+    verify_s = time.time() - t0
+    assert counts["b1"] > 0, counts
+    m = bfs.last_metrics
+    emit("ref_codec_prove", trace_cycles=int(args[0].shape[0]),
+         fri_domain=m["fri_domain"], proof_bytes=len(proof), prove_s=wall,
+         verify_s=verify_s, launches=counts, stages_s=m["stages_s"],
+         fri_round_s=m["fri_round_s"], hash_path=m["hash_path"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         verified=True, nvidia_smi=smi)
+    return counts
+
+
+def debug_degrees(native_proof):
+    """The N=16384 program with `debug_degree_checks=True` on the card:
+    every quotient interpolated on the host and its degree checked; the
+    bytes equal those of the prove with the checks off."""
+    bfs, args = make_stark(STREAM_SRC, 7, "cuda", debug_degree_checks=True)
+    proof, wall, counts = timed_prove(bfs, args)
+    assert proof == native_proof, "debug_degrees: bytes differ"
+    emit("debug_degrees", fri_domain=bfs.fri.domain.length,
+         proof_bytes=len(proof), prove_s=wall, launches=counts,
+         identical_to_unchecked=True)
+
+
+def poly_toolbox():
+    """`ops/fastpoly.py` on the card against the CPU and `ops/poly.py` (the
+    DEBUG checks' and the JAX package's tests' toolbox; exact): the
+    interpolant of 1,000 seeded points, evaluated back at them, and a
+    coset division that undoes a product."""
+    import numpy as np
+
+    from stark_brainfuck_tpu_torch.convert import tensor_to_u64
+    from stark_brainfuck_tpu_torch.ops import fastpoly as fp
+    from stark_brainfuck_tpu_torch.ops import field as F
+    from stark_brainfuck_tpu_torch.ops import poly as hp
+
+    rng = np.random.default_rng(11)
+    n = 1000
+    pts = np.unique(rng.integers(0, F.P, size=(n,), dtype=np.uint64))
+    vals = rng.integers(0, F.P, size=pts.shape, dtype=np.uint64)
+    q = rng.integers(0, F.P, size=(300,), dtype=np.uint64)
+    b = rng.integers(0, F.P, size=(40,), dtype=np.uint64)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        interp = fp.fast_interpolate(pts, vals, device=device)
+        back = fp.fast_evaluate(interp, pts)
+        a = fp.fast_multiply(q, b, device=device)
+        div = fp.fast_coset_divide(a, b, F.GENERATOR,
+                                   F.primitive_nth_root(1024), 1024,
+                                   device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = ([tensor_to_u64(x).tolist() for x in (interp, back, div)],
+                       time.time() - t0)
+    (interp, back, div), _ = out["cuda"]
+    assert out["cuda"][0] == out["cpu"][0], "poly_toolbox: cuda and cpu differ"
+    assert back == vals.tolist(), "poly_toolbox: interpolant misses a point"
+    assert div[: len(q)] == q.tolist(), "poly_toolbox: division is not exact"
+    some = [int(x) for x in pts[:3]]
+    assert [hp.evaluate(interp, x) for x in some] == vals[:3].tolist()
+    emit("poly_toolbox", points=int(pts.shape[0]), identical=True,
+         seconds={k: v[1] for k, v in out.items()})
+
+
+def soundness_params(smi):
+    """Security level 128 at expansion 16 (32 colinearity checks, 128
+    query indices). A FRI-2^14 program: cuda equals cpu on both NTT paths.
+    Then a counter of 2^13 cycles (FRI 2^21, resident): one timed prove on
+    each NTT path, the same bytes, verified."""
+    proof = None
+    for device, backend in (("cuda", "auto"), ("cuda", "mxu"),
+                            ("cpu", "auto"), ("cpu", "mxu")):
+        bfs, args = make_stark(SOUNDNESS_SRC, 7, device, ntt_backend=backend,
+                               **SOUNDNESS)
+        got = bfs.prove(*args)
+        proof = proof or got
+        assert got == proof, f"soundness_params: {device} {backend} differ"
+    assert bfs.verify(proof), bfs.last_rejection
+    emit("soundness_params", program=SOUNDNESS_SRC, **SOUNDNESS,
+         colinearity_checks=bfs.fri.num_colinearity_tests,
+         fri_domain=bfs.fri.domain.length, proof_bytes=len(proof),
+         identical=True, verified=True)
+    src = counter_program(1 << SOUNDNESS_LOG2_CYCLES)
+    proof = None
+    for backend in ("auto", "mxu"):
+        bfs, args = make_stark(src, 0, "cuda", ntt_backend=backend,
+                               **SOUNDNESS)
+        assert not bfs.use_stream
+        got, wall, counts = timed_prove(bfs, args)
+        proof = proof or got
+        assert got == proof, "soundness_params: the NTT paths differ"
+        t0 = time.time()
+        assert bfs.verify(got), bfs.last_rejection
+        verify_s = time.time() - t0
+        assert counts["b1"] > 0, counts
+        m = bfs.last_metrics
+        cycles = int(args[0].shape[0])
+        emit("soundness_params", **SOUNDNESS, ntt_backend=backend,
+             ntt_path=m["ntt_path"], trace_cycles=cycles,
+             fri_domain=m["fri_domain"], prove_s=wall,
+             cycles_per_s=cycles / wall, verify_s=verify_s,
+             proof_bytes=len(got), launches=counts, stages_s=m["stages_s"],
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             identical=True, verified=True, nvidia_smi=smi)
+        del bfs, args
+
+
+# ---------------------------------------------------------------------------
 # the sharded prover: what a rank (a worker process on the card) runs
 # ---------------------------------------------------------------------------
 
@@ -1272,12 +1495,13 @@ def mesh_prove(src, want: bytes, smi, world=2):
 
 
 def kernel_entry(name, source, replaces, launches, launches_streamed,
-                 launches_mesh, rows, main, at):
+                 launches_mesh, launches_ref, rows, main, at):
     """One row of the kernels line: ms, plain_ms and bound at the main
     shape `rows[main]`, the largest error over every checked shape;
     `launches` of the resident full-size prove, `launches_streamed` of the
-    streamed one (32 classes) and `launches_mesh` of one rank of the
-    2-rank mesh prove."""
+    streamed one (32 classes), `launches_mesh` of one rank of the 2-rank
+    mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14 (B2
+    and B3: on the mxu path)."""
     main_shape = rows[main]
     return {
         "name": name,
@@ -1287,6 +1511,7 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
         "launches": launches,
         "launches_streamed": launches_streamed,
         "launches_mesh_per_rank": launches_mesh,
+        "launches_ref_codec": launches_ref,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1295,6 +1520,19 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
         "library_ms": None,
         "at": {k: main_shape[k] for k in at},
     }
+
+
+def other_paths(native_proof, smi):
+    """Step 8: the reference codec, the DEBUG degree checks, the polynomial
+    toolbox and the non-default soundness parameters, on the kernels of the
+    main path. Returns the launches of `ref_codec_bytes`' proves."""
+    launches = ref_codec_bytes(native_proof)
+    ref_codec_golden()
+    ref_codec_prove(smi)
+    debug_degrees(native_proof)
+    poly_toolbox()
+    soundness_params(smi)
+    return launches
 
 
 def main():
@@ -1312,6 +1550,10 @@ def main():
                     help="after the build, prove a counter of 2^K cycles down "
                          "the streamed path (32 classes, both NTT paths), "
                          "and stop")
+    ap.add_argument("--ref-codec", action="store_true",
+                    help="after the build, run step 5 and the phases of the "
+                         "reference codec, the DEBUG degree checks and the "
+                         "other soundness parameters, and stop")
     ap.add_argument("--mesh", type=int, nargs="?", const=2, metavar="RANKS",
                     help="leave out the single-device kernel checks and the "
                          "streamed prover, run mesh_prove on RANKS ranks "
@@ -1358,7 +1600,7 @@ def main():
                           stream_plans(STREAM_CLASSES[:1]))
         print(smi, flush=True)
         return
-    if not opts.mesh:
+    if not (opts.mesh or opts.ref_codec):
         # 3. B1 against its plain version and hashlib at the prover's shapes
         b1 = check_b1()
 
@@ -1376,6 +1618,10 @@ def main():
     assert counts["b2"] > 0 and counts["b3"] > 0, (
         "mxu prove launched no B2/B3 kernel"
     )
+    if opts.ref_codec:
+        other_paths(proof_small, smi)
+        print(smi, flush=True)
+        return
 
     # 6. full-size prove on the card, default and mxu NTT in turns
     full_src = counter_program(1 << LOG2_CYCLES)
@@ -1405,7 +1651,11 @@ def main():
             k: runs[2]["launches"][k] for k in ("b2", "b3")}}
         assert min(streamed.values()) > 0, streamed
 
-    # 8. the sharded prover: ranks are worker processes sharing the card
+        # 8. the reference codec, the DEBUG checks, the polynomial toolbox,
+        # soundness parameters
+        ref_counts = other_paths(proof_small, smi)
+
+    # 9. the sharded prover: ranks are worker processes sharing the card
     dntt_check()
     mesh_kernels()
     mesh_bytes(src, proof_small)
@@ -1417,25 +1667,27 @@ def main():
                    "b2": on_mesh["mxu"][0]["b2"],
                    "b3": on_mesh["mxu"][0]["b3"]}
 
-    # 9. kernels line (ms at the prover's largest shape of each kernel)
+    # 10. kernels line (ms at the prover's largest shape of each kernel)
     # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
     # extension rows)
     kernels = [
         kernel_entry("blake2b_words", "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
                      "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
                      launches["full_prove"][0]["b1"], streamed["b1"],
-                     mesh_counts["b1"], b1, 3,
+                     mesh_counts["b1"], ref_counts["b1"], b1, 3,
                      ("n", "W", "msg_len")),
         kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
-                     counts["b2"], streamed["b2"], mesh_counts["b2"], b2,
+                     counts["b2"], streamed["b2"], mesh_counts["b2"],
+                     ref_counts["b2"], b2,
                      next(i for i, row in enumerate(b2)
                           if (row["stage"], row["form"])
                           == ("ext", "rows_transposed")),
                      ("form", "rows", "m")),
         kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
-                     counts["b3"], streamed["b3"], mesh_counts["b3"], b3, 1,
+                     counts["b3"], streamed["b3"], mesh_counts["b3"],
+                     ref_counts["b3"], b3, 1,
                      ("rows", "r", "c")),
     ]
     print(smi, flush=True)

@@ -1,22 +1,25 @@
 """Framework configuration.
 
 The same fields as the JAX package's `StarkConfig`, so a configuration
-carries across unchanged (`convert.config_from_fields`). This package runs
-the native-codec prover, resident below `stream_min` and streamed from it
-up, on one device or (resident only) over the ranks of a mesh; each option
-outside that (the reference codec, the degree checks) raises
-`NotImplementedError` naming the ROADMAP item that will bring it.
+carries across unchanged (`convert.config_from_fields`): the native or the
+reference-pickle codec, resident below `stream_min` and (native codec
+only, as there) streamed from it up, on one device or (resident only) over
+the ranks of a mesh, with the DEBUG quotient degree checks on request.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class StarkConfig:
-    # FRI / soundness parameters
+    # FRI / soundness parameters (the JAX package's defaults). The FRI last
+    # codeword has 2 x expansion_factor values and caps the colinearity
+    # checks there: security_level 160 needs log_expansion_factor 5, and at
+    # 4 the most is 128
     log_expansion_factor: int = 2
     security_level: int = 2
     num_randomizers: int = 1
@@ -27,7 +30,9 @@ class StarkConfig:
     # RNG: None -> os.urandom; an int seed gives a deterministic prover
     seed: Optional[int] = None
 
-    # transcript codec: only "native" here
+    # transcript codec: "native" (canonical fixed-width byte format) or
+    # "ref" (pickle-compatible with the reference's ProofStream,
+    # interop/refcodec.py); "ref" commits with host trees and never streams
     codec: str = "native"
 
     # mesh for sharded proving, e.g. (("shard", 4),): the product of the
@@ -61,9 +66,12 @@ class StarkConfig:
     ntt_backend: str = "auto"
     mxu_ntt_min: int = 1 << 14
 
-    # opt-in quotient degree checks (the JAX package's DEBUG mode); not
-    # ported yet, so the default ignores the DEBUG environment variable
-    debug_degree_checks: bool = False
+    # opt-in quotient degree checks (the reference's DEBUG mode, on when the
+    # DEBUG environment variable is set): interpolate every quotient and
+    # assert its degree; resident proves only
+    debug_degree_checks: bool = field(
+        default_factory=lambda: os.environ.get("DEBUG") is not None
+    )
 
     @property
     def expansion_factor(self) -> int:
@@ -87,17 +95,8 @@ class StarkConfig:
                 f"mesh_shape {self.mesh_shape!r}: the number of ranks must "
                 f"be a power of two (blocks of a power-of-two domain)"
             )
-        if self.codec == "ref":
-            raise NotImplementedError(
-                "codec='ref': the reference-pickle codec is ROADMAP Queue A "
-                "item 9"
-            )
-        if self.codec != "native":
+        if self.codec not in ("native", "ref"):
             raise ValueError(f"unknown codec {self.codec!r}")
         if self.ntt_backend not in ("auto", "u64", "mxu"):
             raise ValueError(f"unknown ntt_backend {self.ntt_backend!r}")
-        if self.debug_degree_checks:
-            raise NotImplementedError(
-                "debug_degree_checks: ROADMAP Queue A item 10"
-            )
         return self

@@ -5,7 +5,7 @@ ints, bytes, tuples/lists thereof) — the same push/pull discipline as ref
 `ip.py:4-30`, with Fiat–Shamir = shake_256 over the serialized prefix. The
 native codec pins pickle protocol 4 so transcripts are stable across python
 versions; the interop codec (interop/) swaps in reference-compatible object
-pickling (not ported: `codec="ref"` raises in config.py).
+pickling (`codec="ref"`, `interop/refcodec.py`).
 
 Also hosts the canonical fixed-width leaf encodings used by the Merkle layer
 and the FS-derived samplers (challenge weights, query indices) whose
@@ -121,10 +121,11 @@ class NativeCodec:
 def make_codec(name: str):
     if name == "native":
         return NativeCodec()
-    raise NotImplementedError(
-        f"codec {name!r}: only the native codec is ported (ROADMAP Queue A "
-        "item 9)"
-    )
+    if name == "ref":
+        from ..interop.refcodec import RefCodec
+
+        return RefCodec()
+    raise ValueError(f"unknown codec {name!r}")
 
 
 # ---------------------------------------------------------------------------

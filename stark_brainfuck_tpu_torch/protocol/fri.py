@@ -12,6 +12,11 @@ Shorter rounds finish on the host with hashlib trees. Only roots, query
 openings and the last codeword cross to the host; the transcript bytes are
 the host path's.
 
+Under the reference codec every round is folded and committed on the host:
+its leaves are pickled leaf objects (`interop/refcodec.py`), and each
+round keeps the list of those objects, so that a value opened twice is the
+same object in the proof (a pickle memo reference), as in the JAX package.
+
 Under a mesh (`parallel/mesh.py`) a round's codeword is in blocks, one a
 rank. The fold pairs index i with i + N/2, which live half the ranks apart:
 the rank that will own block j of the folded codeword pulls the two
@@ -164,16 +169,24 @@ class Fri:
     # -- prover -------------------------------------------------------------
 
     def commit(self, codeword, proof_stream: ProofStream, on_device: bool,
-               tree0=None, sharded: bool = False):
+               tree0=None, sharded: bool = False, leaf_objs0=None):
         """codeword: (N, 3) int64 tensor. `on_device` selects device trees
         while rounds are at least `host_min` long. `tree0` is the caller's
         commitment to the round-0 codeword (the STARK's combination tree),
         reused instead of rebuilt. With `sharded`, `codeword` is this rank's
-        block of it (and `tree0` a tree built in blocks). Returns (round
+        block of it (and `tree0` a tree built in blocks). Under a codec other
+        than the native one every round is a host tree over the codec's leaf
+        payloads, and `leaf_objs0` the round-0 leaf objects (the caller's,
+        so that their identity carries into the proof). Returns (round
         lengths, leaf-object lists, trees)."""
         offset = self.domain.offset
         omega = self.domain.omega
         mesh = self.mesh
+        native = self.codec.name == "native"
+        if not native:
+            assert not (on_device or sharded or tree0 is not None), (
+                "a non-native codec commits with host trees only")
+            codeword = codeword.cpu()
         trees: List = []
         lengths: List[int] = []
         leaf_objs: List = []
@@ -205,9 +218,16 @@ class Fri:
             elif on_device:
                 tree = DeviceMerkle(codeword, mesh=mesh if sharded else None)
                 objs = _DeviceTreeLeaves(tree)
-            else:
+            elif native:
                 objs = _LazyLeaves(tensor_to_u64(codeword))
                 tree = _host_tree(codeword)
+            else:
+                if r == 0 and leaf_objs0 is not None:
+                    objs = leaf_objs0
+                else:
+                    objs = [tuple(int(v) for v in row)
+                            for row in tensor_to_u64(codeword)]
+                tree = Merkle([self.codec.leaf_payload(o) for o in objs])
             if r > 0:
                 proof_stream.push(tree.root())
             lengths.append(N)
@@ -289,11 +309,13 @@ class Fri:
             proof_stream.push(current_tree.open(b_indices[s]))
 
     def prove(self, codeword, proof_stream: ProofStream, on_device: bool,
-              tree0=None, sharded: bool = False) -> List[int]:
+              tree0=None, sharded: bool = False,
+              leaf_objs0=None) -> List[int]:
         blocks = self.mesh.world if sharded else 1
         assert self.domain.length == codeword.shape[0] * blocks
         lengths, leaf_objs, trees = self.commit(
-            codeword, proof_stream, on_device, tree0=tree0, sharded=sharded
+            codeword, proof_stream, on_device, tree0=tree0, sharded=sharded,
+            leaf_objs0=leaf_objs0,
         )
 
         top_level_indices = sample_indices_fri(

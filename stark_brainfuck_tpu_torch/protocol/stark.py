@@ -3,9 +3,9 @@
 Protocol flow and transcript order match ref `brainfuck_stark.py:20-579`
 (base commit → challenges → extend → ext commit → quotients → terminals →
 weights → combination commit → indices → openings → FRI), and a seeded
-proof is byte-identical to the JAX package's. This is the native-codec
-prover, on one device or, with `mesh_shape`, on the ranks of a
-`torch.distributed` process group:
+proof is byte-identical to the JAX package's, under either codec, on one
+device or, with `mesh_shape`, on the ranks of a `torch.distributed` process
+group:
 
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
@@ -30,9 +30,23 @@ prover, on one device or, with `mesh_shape`, on the ranks of a
     returns the same bytes as one device does. Where the JAX package marks
     arrays with `_shard` and lets its compiler insert the collectives, each
     exchange here is a call into `parallel/mesh.py`;
+  - under the reference codec (`codec="ref"`, `interop/refcodec.py`) the
+    codewords are computed on the device as above, but every tree hashes
+    pickled leaf objects on the host, FRI folds on the host, nothing
+    streams, and the ranks of a mesh gather before they commit. The prover
+    shares leaf objects where the JAX package's does (the leaf caches,
+    FRI round 0 opening the combination leaves), because the pickle's memo
+    references are part of the bytes;
+  - `debug_degree_checks` (the reference's DEBUG mode) interpolates every
+    quotient on CPU copies of the resident codewords and checks its degree;
   - the verifier recomputes the quotients with the same constraint
     builders over CPU tensors (one lane per query index);
   - hashing of transcript objects stays on the host.
+
+The JAX package's export cache (`utils/aot.py`, which keeps its compiled
+stages across processes) has no counterpart: nothing here is compiled
+ahead of a prove; the CUDA kernels are built once per source by
+`ops/cuda_build.py`.
 """
 
 from __future__ import annotations
@@ -181,8 +195,11 @@ class BrainfuckStark:
                 self.max_degree = max(self.max_degree, degree)
         self.max_degree = roundup_npo2(self.max_degree) - 1
         fri_domain_length = (self.max_degree + 1) * cfg.expansion_factor
-        # the streamed prover takes over from here up
-        self.use_stream = fri_domain_length >= cfg.stream_min
+        # the streamed prover takes over from here up, under the native codec
+        # (the reference codec's trees hash pickled leaf objects on the host,
+        # so it stays resident, as in the JAX package)
+        self.use_stream = (cfg.codec == "native"
+                           and fri_domain_length >= cfg.stream_min)
         if self.mesh is not None and self.use_stream:
             raise ValueError(
                 f"mesh_shape with a streamed domain ({fri_domain_length} >= "
@@ -284,6 +301,51 @@ class BrainfuckStark:
         self._zinv_cache = out
         return out
 
+    def debug_check_degrees(self, base_cws, ext_cws, challenges_h,
+                            terminals_h):
+        """The reference's DEBUG mode (table.py:170-176, 219-234, 264-284):
+        interpolate every quotient codeword and assert its degree is below
+        both the FRI domain bound and its symbolic degree bound. On CPU
+        copies of the codewords (gathered from the ranks under a mesh);
+        gated by StarkConfig.debug_degree_checks. As the JAX package's
+        `debug_check_degrees`."""
+        mesh = self.mesh
+
+        def whole(x, dim):
+            return (x if mesh is None else mesh.all_gather(x, dim=dim)).cpu()
+
+        alg = ArrayAlgebra("cpu")
+        N = self.fri.domain.length
+        ch_vals = [alg.x(u64_to_tensor(c)) for c in challenges_h]
+        tm_vals = [alg.x(u64_to_tensor(t_)) for t_ in terminals_h]
+        zinv = {h: {k: whole(v, 0) for k, v in kinds.items()}
+                for h, kinds in self._zerofier_inverses().items()}
+        for t, base_cw, ext_cw in zip(self.tables, base_cws, ext_cws):
+            base_cw, ext_cw = whole(base_cw, 1), whole(ext_cw, 1)
+            ud = t.unit_distance(N)
+            point = [alg.base(base_cw[j]) for j in range(t.base_width)]
+            point += [alg.x(ext_cw[j]) for j in range(t.num_ext_columns)]
+            point_next = [alg.base(torch.roll(base_cw[j], -ud, 0))
+                          for j in range(t.base_width)]
+            point_next += [alg.x(torch.roll(ext_cw[j], -ud, 0))
+                           for j in range(t.num_ext_columns)]
+            quotients = t.quotients(
+                alg, point, point_next, ch_vals, tm_vals, zinv[t.height]
+            )
+            bounds = t.all_quotient_degree_bounds(challenges_h, terminals_h)
+            for i, (q, bound) in enumerate(zip(quotients, bounds)):
+                coeffs = self.fri.domain.xinterpolate(q)
+                nz = torch.nonzero((coeffs != 0).any(dim=1))
+                deg = int(nz[-1]) if len(nz) else -1
+                assert deg < N - 1, (
+                    f"{t.name} quotient {i}: degree {deg} hits the domain "
+                    f"bound — AIR does not divide cleanly"
+                )
+                assert deg <= bound or deg == -1, (
+                    f"{t.name} quotient {i}: degree {deg} > symbolic bound "
+                    f"{bound}"
+                )
+
     def _block(self):
         """(first index, length) of this rank's block of the FRI domain:
         the whole domain without a mesh."""
@@ -293,13 +355,19 @@ class BrainfuckStark:
         lo, hi = self.mesh.block(N)
         return lo, hi - lo
 
+    def _device_commit(self) -> bool:
+        """Whether commitments are device trees: from `device_commit_min`
+        up, under the native codec. The reference codec hashes pickled leaf
+        objects, so its trees are always built on the host."""
+        return (self.codec.name == "native"
+                and self.fri.domain.length >= self.config.device_commit_min)
+
     def _sharded_commit(self) -> bool:
-        """Whether commitments are trees built in blocks: under a mesh, from
-        `device_commit_min` up, while each rank keeps enough leaves. Else
-        the codeword is gathered and every rank builds the whole tree."""
-        N = self.fri.domain.length
-        return (self.mesh is not None and N >= self.config.device_commit_min
-                and self.mesh.shardable(N))
+        """Whether commitments are trees built in blocks: under a mesh, with
+        device trees, while each rank keeps enough leaves. Else the codeword
+        is gathered and every rank builds the whole tree."""
+        return (self.mesh is not None and self._device_commit()
+                and self.mesh.shardable(self.fri.domain.length))
 
     def _ntt_path(self) -> str:
         """The forward-LDE NTT that `ntt_backend` resolves to: the four-step
@@ -907,7 +975,8 @@ class BrainfuckStark:
             for t in self.tables
         )
         packs = self._lde_packs()
-        device_commit = N >= cfg.device_commit_min
+        native = self.codec.name == "native"
+        device_commit = self._device_commit()
         sharded_commit = self._sharded_commit()
         if use_stream:
             # streamed mode: only coefficient groups persist (see
@@ -939,7 +1008,7 @@ class BrainfuckStark:
                 [randomizer_codeword] + [cw.T for cw in base_codewords], dim=1
             )  # (N, 3 + num_base_columns)
             base_tree, base_row = self._salted_commit(
-                zipped_base, salt_key_words(base_salt_key, dev)
+                zipped_base, salt_key_words(base_salt_key, dev), base_widths
             )
             _mark("base merkle (device)" if device_commit else "base merkle")
         base_leaf_cache: Dict[int, tuple] = {}
@@ -1008,7 +1077,7 @@ class BrainfuckStark:
                 dim=1,
             )  # (N, 3 * num_ext_columns)
             ext_tree, ext_row = self._salted_commit(
-                zipped_ext, salt_key_words(ext_salt_key, dev)
+                zipped_ext, salt_key_words(ext_salt_key, dev), ext_widths
             )
             _mark("ext merkle (device)" if device_commit else "ext merkle")
         ext_leaf_cache: Dict[int, tuple] = {}
@@ -1021,6 +1090,13 @@ class BrainfuckStark:
             return ext_leaf_cache[idx]
 
         proof_stream.push(ext_tree.root())
+
+        if cfg.debug_degree_checks and not use_stream:
+            # (a streamed prove never holds the whole codewords that the
+            # check interpolates; run DEBUG at resident sizes)
+            self.debug_check_degrees(
+                base_codewords, ext_codewords, challenges_h, terminals_h
+            )
 
         # 9. quotient degree bounds (host, symbolic; ref :210-218)
         quotient_degree_bounds = []
@@ -1078,9 +1154,15 @@ class BrainfuckStark:
         else:
             combination = combination.cpu()
             comb_host = tensor_to_u64(combination)
-            combination_tree = Merkle.from_buffer(
-                comb_host.astype("<u8").tobytes(), 24, N
-            )
+            if native:
+                combination_tree = Merkle.from_buffer(
+                    comb_host.astype("<u8").tobytes(), 24, N
+                )
+            else:
+                combination_tree = Merkle([
+                    self.codec.leaf_payload(tuple(int(v) for v in row))
+                    for row in comb_host
+                ])
             comb_row = lambda idx: comb_host[idx]  # noqa: E731
             _mark("combination merkle")
         comb_leaf_cache: Dict[int, tuple] = {}
@@ -1137,10 +1219,14 @@ class BrainfuckStark:
             proof_stream.push(comb_leaf_obj(index))
             proof_stream.push(combination_tree.open(index))
 
-        # 17. FRI (ref :336)
+        # 17. FRI (ref :336). Under the reference codec round 0 opens the
+        # very leaf objects that step 16 pushed (pickle memo references) and
+        # builds its tree again from them
         self.fri.prove(
             combination, proof_stream, on_device=device_commit,
-            tree0=combination_tree, sharded=sharded_commit,
+            tree0=combination_tree if native else None,
+            sharded=sharded_commit,
+            leaf_objs0=None if native else [comb_leaf_obj(i) for i in range(N)],
         )
         _mark("fri.prove")
 
@@ -1175,16 +1261,17 @@ class BrainfuckStark:
         )
         return proof
 
-    def _salted_commit(self, zipped, key):
+    def _salted_commit(self, zipped, key, widths: List[int]):
         """Salted Merkle commitment to the rows of `zipped` (N, k): a device
-        tree from `device_commit_min` up, else a host hashlib tree. Under a
-        mesh `zipped` is the rank's block: the tree is built in blocks, with
-        the salts of the rank's own leaf indices, while a block keeps enough
-        leaves; else the rows are gathered first. Returns (tree, row
-        accessor)."""
+        tree from `device_commit_min` up under the native codec, else a host
+        hashlib tree (under the reference codec over the pickled leaf object
+        of each row, whose columns are `widths` words wide). Under a mesh
+        `zipped` is the rank's block: the tree is built in blocks, with the
+        salts of the rank's own leaf indices, while a block keeps enough
+        leaves; else the rows are gathered first. The salts come from the
+        salt PRF on the device either way. Returns (tree, row accessor)."""
         mesh = self.mesh
         N = self.fri.domain.length
-        device_commit = N >= self.config.device_commit_min
         if self._sharded_commit():
             lo, n = self._block()
             salts = salt_words_device(
@@ -1196,13 +1283,23 @@ class BrainfuckStark:
         if mesh is not None:
             zipped = mesh.all_gather(zipped)
         salts = salt_words_device(key, N)
-        if device_commit:
+        if self._device_commit():
             tree = DeviceSaltedMerkle(zipped, salts, cut=default_cut(N))
             return tree, tree.row_at
         rows = tensor_to_u64(zipped)
         salt_buf = SaltBuffer(salt_words_to_buffer(salts))
-        buf, plen = _salted_payload_buffer(rows, salt_buf.buf)
-        tree = SaltedMerkle.from_buffer(buf, plen, N, salt_buf)
+        if self.codec.name == "native":
+            buf, plen = _salted_payload_buffer(rows, salt_buf.buf)
+            tree = SaltedMerkle.from_buffer(buf, plen, N, salt_buf)
+        else:
+            # fresh leaf objects: the opened ones come from the prover's
+            # leaf cache, as in the JAX package
+            tree = SaltedMerkle(
+                [self.codec.salted_payload(_row_to_leaf_object(rows[i], widths),
+                                           salt_buf[i])
+                 for i in range(N)],
+                salt_buf,
+            )
         return tree, (lambda idx: rows[idx])
 
     # ------------------------------------------------------------------

@@ -266,11 +266,14 @@ def test_default_device_needs_cuda():
     "fields",
     [
         {"mesh_shape": (("shard", 2),)},
-        {"codec": "ref"},
-        {"debug_degree_checks": True},
+        {"codec": "pickle"},
+        {"ntt_backend": "int8"},
     ],
 )
 def test_unported_options_raise(fields):
+    """A mesh outside a process group of its size (tests/test_torch_parallel.py
+    proves inside one), an unknown codec and an unknown NTT backend are
+    refused with ValueError; every option of the JAX package is ported."""
     from dataclasses import asdict
 
     from stark_brainfuck_tpu_torch.convert import config_from_fields
@@ -278,12 +281,135 @@ def test_unported_options_raise(fields):
     cfg = config_from_fields({**asdict(J.StarkConfig(seed=1)), **fields})
     program = TP.VirtualMachine.compile("++++")
     tr = TP.VirtualMachine.simulate(program)
-    # a mesh is ported, and needs a process group of its size: outside one
-    # it is a ValueError (tests/test_torch_parallel.py proves inside one)
-    error = ValueError if "mesh_shape" in fields else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         TP.BrainfuckStark(tr["processor"].shape[0], tr["memory"].shape[0],
                           program, "", tr["output_data"], cfg, device="cpu")
+
+
+# -- the rest of tests/test_tamper.py and the Mallory trace of
+# tests/test_stark.py, on the port's resident plus4 proof. Native-format
+# object layout: 0 = base root, 1 = ext root, 2-6 = terminals, 7 =
+# combination root, then per query index and unit distance [base element,
+# (salt, path), ext element, (salt, path)], then per query index
+# [combination leaf, path], then FRI.
+
+
+def test_tampered_base_salt_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        salt, path = objs[9]
+        objs[9] = (bytes([salt[0] ^ 1]) + salt[1:], path)
+
+    assert "base codeword opening" in _tampered(tb, pt, mutate)
+
+
+def test_tampered_ext_opening_element_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        el = [tuple(c) for c in objs[10]]
+        c0 = list(el[0])
+        c0[0] = (int(c0[0]) + 1) % P
+        el[0] = tuple(c0)
+        objs[10] = tuple(el)
+
+    assert "extension codeword opening" in _tampered(tb, pt, mutate)
+
+
+def test_tampered_ext_path_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        salt, path = objs[11]
+        path = list(path)
+        path[0] = bytes([path[0][0] ^ 0xFF]) + path[0][1:]
+        objs[11] = (salt, path)
+
+    assert "extension codeword opening" in _tampered(tb, pt, mutate)
+
+
+def test_tampered_combination_leaf_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        # the first 3-tuple of ints after the openings
+        i = next(i for i in range(8, len(objs))
+                 if isinstance(objs[i], tuple) and len(objs[i]) == 3
+                 and all(isinstance(v, int) for v in objs[i]))
+        leaf = list(objs[i])
+        leaf[2] = (leaf[2] + 1) % P
+        objs[i] = tuple(leaf)
+
+    assert "combination" in _tampered(tb, pt, mutate)
+
+
+def test_tampered_fri_root_rejected():
+    _, _, tb, pt = _proofs("plus4")
+
+    def mutate(objs):
+        # the last 64-byte bytes object: a late FRI round's root
+        i = next(i for i in range(len(objs) - 1, 7, -1)
+                 if isinstance(objs[i], bytes) and len(objs[i]) == 64)
+        objs[i] = bytes([objs[i][0] ^ 1]) + objs[i][1:]
+
+    assert "FRI" in _tampered(tb, pt, mutate)
+
+
+def _forged(src, trace, seed):
+    """(port stark, its proof of `trace`, JAX stark, JAX proof): the
+    same forged trace through both provers."""
+    program = J.VirtualMachine.compile(src)
+    args = (trace["processor"], trace["memory"], trace["instruction"],
+            trace["input"], trace["output"])
+    out = []
+    for pkg, kw, pkw in ((TP, {}, {"device": "cpu"}), (J, {"xp": np}, {})):
+        bfs = pkg.BrainfuckStark(
+            trace["processor"].shape[0], trace["memory"].shape[0], program,
+            "", trace["output_data"], pkg.StarkConfig(seed=seed), **pkw)
+        out += [bfs, bfs.prove(*args, **kw)]
+    return out
+
+
+def test_memory_sorting_attack_rejected():
+    """The mirror of tests/test_tamper.py::test_memory_sorting_attack_
+    rejected: a memory matrix sorted by (mp, clk) without the dummy rows
+    that erase clk jumps proves, to the JAX package's bytes, and is
+    rejected by both verifiers."""
+    program = J.VirtualMachine.compile("+>++<-")
+    trace = J.VirtualMachine.simulate(program)
+    processor = trace["processor"]
+    rows = processor[processor[:, 2] != 0]
+    order = np.lexsort(
+        (rows[:, 0].astype(np.int64), rows[:, 4].astype(np.int64)))
+    sel = rows[order][:, [0, 4, 5]]
+    forged = np.concatenate(
+        [sel, np.zeros((sel.shape[0], 1), dtype=np.uint64)], axis=1
+    ).astype(np.uint64)
+    assert forged.shape != trace["memory"].shape or (
+        forged != trace["memory"]).any()
+    tb, pt, jb, pj = _forged("+>++<-", {**trace, "memory": forged}, 5)
+    assert pt == pj
+    assert not tb.verify(pt) and not jb.verify(pt)
+    assert tb.last_rejection == jb.last_rejection
+    assert "FRI" in tb.last_rejection
+
+
+def test_mallory_forged_trace_rejected():
+    """The mirror of tests/test_stark.py::test_mallory_forged_trace_
+    rejected: Mallory's forged execution proves, to the JAX package's
+    bytes, and fails the low-degree test in both verifiers."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_stark import mallory_simulate
+
+    forged = mallory_simulate(J.VirtualMachine.compile("+>[++<-]"))
+    tb, pt, jb, pj = _forged("+>[++<-]", {**forged, "output_data": ""}, 3)
+    assert pt == pj
+    assert not tb.verify(pt) and not jb.verify(pt)
+    assert tb.last_rejection == jb.last_rejection
+    assert "FRI low-degree test failed" in tb.last_rejection
 
 
 def _port_sources():
