@@ -9,7 +9,14 @@ line each; any failure raises and exits non-zero:
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: compiles every kernel source (csrc/*.cu) with nvcc, one
-     process each, all started together;
+     process each, all started together, and the host runtime's two C++
+     sources (native/*.cpp) with g++; native_host: the C++ trace recorder
+     and the python one on the 2^16-cycle counter, arrays equal and the C++
+     one at least 10x faster, the C++ one alone on the 2^20-cycle counter,
+     and host Merkle trees of 2^14 and 2^16 leaves of 104 bytes from the
+     C++ engine against hashlib, with the host's CPU count beside the times,
+     then the engine built at six level widths from which a level hashes
+     on every core, each timed on trees of 2^10 to 2^16 leaves;
   3. B1 checks: the BLAKE2b kernel against its plain torch version and
      `hashlib` at the prover's shapes, with CUDA-event times;
   4. B2 at every size m = 2 .. 2^13, forward and inverse, contiguous and
@@ -30,8 +37,9 @@ line each; any failure raises and exits non-zero:
      the largest resident one) on the default NTT path (full_prove) and
      with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
-     launch counts, stage times and peak device memory at each stage mark;
-     all proofs byte-identical;
+     launch counts, stage times, peak device memory at each stage mark and
+     the prover's NTT butterfly, hashed leaf and extended row counts and
+     rates (so too each stream_prove below); all proofs byte-identical;
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
      stream_bytes: the N=16384 program with `stream_min=1,
      stream_classes=4` on cuda and on cpu, on both NTT paths, every proof
@@ -156,6 +164,17 @@ NTT_ROWS = {"base": 19, "ext": 27}
 STREAM_LOG2_CYCLES = 16
 STREAM_CLASSES = (32, 2)
 STREAM_S = (1 << (STREAM_LOG2_CYCLES + 6)) // STREAM_CLASSES[0]
+
+# native_host: counters recorded by the C++ recorder (the first also by the
+# python one), and host trees of 104-byte leaves; the tree engine is also
+# built at each of NATIVE_PARALLEL_MINS (the level width from which a level
+# hashes on every core; 2^40: never) and timed on NATIVE_SWEEP_LEAVES
+NATIVE_LOG2_CYCLES = (16, 20)
+NATIVE_TREE_LEAVES = (1 << 14, 1 << 16)
+NATIVE_TREE_PLEN = 104
+NATIVE_PARALLEL_MINS = (1, 256, 1024, 2048, 8192, 1 << 40)
+NATIVE_SWEEP_LEAVES = (1 << 10, 1 << 12, 1 << 14, 1 << 16)
+NATIVE_SWEEP_REPS = 5
 
 # (n, W words, msg_len bytes) of the prover's BLAKE2b calls at FRI 2^21:
 # Merkle parents, salt/randomizer PRF, base leaf (19+3 words), ext leaf
@@ -610,6 +629,100 @@ def counter_program(target_cycles: int) -> str:
     return "+" * lo + inner
 
 
+def native_host(smi):
+    """The host runtime (native/): the C++ trace recorder against the
+    python one on the 2^16-cycle counter, alone on the 2^20-cycle one, and
+    the C++ Merkle engine against hashlib. Host wall times."""
+    import numpy as np
+
+    from stark_brainfuck_tpu_torch import VirtualMachine
+    from stark_brainfuck_tpu_torch.protocol import merkle as M
+
+    # load both libraries, and start OpenMP's threads with a tree of 2^12
+    # leaves, whose wide levels run in parallel regions
+    VirtualMachine.simulate(VirtualMachine.compile("++"))
+    M._build_nodes_buffer(bytes(NATIVE_TREE_PLEN << 12), NATIVE_TREE_PLEN,
+                          1 << 12)
+    recorder = {}
+    for log2 in NATIVE_LOG2_CYCLES:
+        program = VirtualMachine.compile(counter_program(1 << log2))
+        t0 = time.time()
+        trace = VirtualMachine.simulate(program)
+        row = {"trace_cycles": int(trace["processor"].shape[0]),
+               "cpp_s": time.time() - t0}
+        assert row["trace_cycles"] + len(program) < 1 << log2, row
+        if log2 == NATIVE_LOG2_CYCLES[0]:
+            t0 = time.time()
+            plain = VirtualMachine.simulate(program, native=False)
+            row["python_s"] = time.time() - t0
+            for key in ("processor", "memory", "instruction", "input",
+                        "output"):
+                assert np.array_equal(trace[key], plain[key]), key
+            row["speedup"] = row["python_s"] / row["cpp_s"]
+            assert row["speedup"] >= 10, row
+        recorder[f"2^{log2}"] = row
+    trees = []
+    for count in NATIVE_TREE_LEAVES:
+        buf = np.random.default_rng(count).integers(
+            0, 256, count * NATIVE_TREE_PLEN, dtype=np.uint8).tobytes()
+        cpp_s = []  # the first tree also takes its output's fresh pages
+        for _ in range(NATIVE_SWEEP_REPS):
+            t0 = time.time()
+            nodes = M._build_nodes_buffer(buf, NATIVE_TREE_PLEN, count)
+            cpp_s.append(time.time() - t0)
+        t0 = time.time()
+        want = M._build_nodes_python(
+            [buf[i * NATIVE_TREE_PLEN:(i + 1) * NATIVE_TREE_PLEN]
+             for i in range(count)], count)
+        trees.append({"leaves": count, "payload_bytes": NATIVE_TREE_PLEN,
+                      "cpp_first_s": cpp_s[0], "cpp_s": min(cpp_s),
+                      "hashlib_s": time.time() - t0, "equal": nodes == want})
+        assert nodes == want, f"host tree of {count} leaves differs"
+    emit("native_host", recorder=recorder, trees=trees,
+         parallel_min_sweep=tree_parallel_min_sweep(),
+         cpu_count=os.cpu_count(), nvidia_smi=smi)
+
+
+def tree_parallel_min_sweep():
+    """The least of NATIVE_SWEEP_REPS host tree times (ms) for each level
+    width from which the engine hashes a level in parallel, each a build of
+    native/hashing.cpp of its own (all started together), each tree checked
+    against the shipped engine's."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from stark_brainfuck_tpu_torch.ops import cuda_build
+    from stark_brainfuck_tpu_torch.protocol import merkle as M
+
+    with ThreadPoolExecutor(len(NATIVE_PARALLEL_MINS)) as pool:
+        paths = list(pool.map(
+            lambda m: cuda_build.build_host(
+                ["hashing"], [f"MERKLE_PARALLEL_MIN={m}"])["hashing"],
+            NATIVE_PARALLEL_MINS))
+    out = {}
+    for pmin, path in zip(NATIVE_PARALLEL_MINS, paths):
+        fn = ctypes.CDLL(path).merkle_from_payloads
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+                       ctypes.c_char_p]
+        row = {}
+        for count in NATIVE_SWEEP_LEAVES:
+            buf = np.random.default_rng(count).integers(
+                0, 256, count * NATIVE_TREE_PLEN, dtype=np.uint8).tobytes()
+            nodes = ctypes.create_string_buffer(2 * count * M.HASH_LEN)
+            times = []
+            for _ in range(NATIVE_SWEEP_REPS):
+                t0 = time.perf_counter()
+                fn(buf, NATIVE_TREE_PLEN, count, nodes)
+                times.append((time.perf_counter() - t0) * 1e3)
+            assert nodes.raw == M._build_nodes_buffer(
+                buf, NATIVE_TREE_PLEN, count), (pmin, count)
+            row[str(count)] = min(times)
+        out[str(pmin)] = row
+    return out
+
+
 def make_stark(src: str, seed: int, device, trace=None, **config):
     """(stark, prove arguments) for a program without input; `trace`, the
     program's recorded run, spares simulating it again."""
@@ -658,6 +771,15 @@ def profile_prove(bfs, args, out_dir):
          top=[{"kernel": e.key[:80], "calls": e.count,
                "device_s": e.self_device_time_total / 1e6}
               for e in events[:12]])
+
+
+# the work counts and rates of `last_metrics` that the JAX prover reports
+RATE_KEYS = ("ntt_butterflies", "ntt_butterflies_per_s", "hash_leaves",
+             "hash_leaves_per_s", "extend_rows_per_s")
+
+
+def rates(bfs):
+    return {k: bfs.last_metrics[k] for k in RATE_KEYS}
 
 
 def reset_counts():
@@ -718,6 +840,7 @@ def full_proves(src, smi):
             "fri_round_s": bfs.last_metrics["fri_round_s"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "peak_bytes_at_mark": bfs.last_metrics["peak_bytes_at_mark"],
+            **rates(bfs),
         })
     for phase, (bfs, args) in starks.items():
         rs = runs[phase]
@@ -982,7 +1105,7 @@ def stream_proves(log2_cycles, smi, plans):
                "cycles_per_s": cycles / wall, "launches": counts,
                "stages_s": m["stages_s"],
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "peak_bytes_at_mark": m["peak_bytes_at_mark"],
+               "peak_bytes_at_mark": m["peak_bytes_at_mark"], **rates(bfs),
                "proof_bytes": len(got), "identical": True,
                "verified": True, "nvidia_smi": smi}
         emit("stream_prove", **run)
@@ -1575,9 +1698,11 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build every kernel source, in parallel
+    # 2. build every kernel source, in parallel, then the host runtime
     t0 = time.time()
     libs = cuda_build.build()
+    host_libs = cuda_build.build_host()
+    build_s = time.time() - t0
     ptxas = {}
     for name, lib in libs.items():
         log = lib[:-3] + ".log"
@@ -1586,9 +1711,11 @@ def main():
                 ptxas[name] = [ln.strip() for ln in fh
                                if "Used" in ln or "spill" in ln]
     emit("build", kernels={k: os.path.relpath(v) for k, v in libs.items()},
-         seconds=time.time() - t0, ptxas=ptxas,
+         host={k: os.path.relpath(v) for k, v in host_libs.items()},
+         seconds=build_s, ptxas=ptxas,
          sass_instructions={k: sass_counts(v) for k, v in libs.items()})
     assert {"blake2b", "ntt"} <= set(libs), libs
+    assert {"hashing", "vm"} <= set(host_libs), host_libs
 
     if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
         if opts.b2_sweep:
@@ -1600,6 +1727,7 @@ def main():
                           stream_plans(STREAM_CLASSES[:1]))
         print(smi, flush=True)
         return
+    native_host(smi)
     if not (opts.mesh or opts.ref_codec):
         # 3. B1 against its plain version and hashlib at the prover's shapes
         b1 = check_b1()

@@ -10,10 +10,11 @@ the native or the reference-pickle codec (interop/), resident and (native,
 from `stream_min` up) streamed, on one device or, with `mesh_shape`, over
 the ranks of a `torch.distributed` process group (parallel/), with the
 DEBUG degree checks on request; ops/poly.py and ops/fastpoly.py hold the
-polynomial toolbox. Modules of the JAX package with no counterpart, each
-with its reason in the module that would have used it: `ops/limb.py` and
-`ops/mxu_ntt.py` (ops/kernel_ntt.py), `utils/aot.py` (protocol/stark.py),
-`native/` (vm/machine.py, protocol/merkle.py).
+polynomial toolbox; native/ holds the host runtime in C++ (the trace
+recorder and the OpenMP Merkle engine, built with g++ at first use).
+Modules of the JAX package with no counterpart, each with its reason in
+the module that would have used it: `ops/limb.py` and `ops/mxu_ntt.py`
+(ops/kernel_ntt.py), `utils/aot.py` (protocol/stark.py).
 """
 
 from .config import StarkConfig

@@ -5,7 +5,10 @@ The symbolic form of the AIR constraints serves `symbolic_degree_bound`
 (ref `multivariate.py:142-168`), which sets the FRI domain size and every
 degree-shift exponent in the nonlinear combination; the constraints are
 evaluated on codewords by `interp.ArrayAlgebra` instead. A copy of the JAX
-package's `models/symbolic.py` without its evaluation helpers.
+package's `models/symbolic.py`. Its host-side evaluation helpers
+(`evaluate`, `partial_evaluate`, `evaluate_symbolic`, `lift`, `is_zero`)
+keep the JAX package's API; no prover path calls them, and
+`tests/test_torch_symbolic.py` holds each to the JAX package's.
 
 Coefficients are host-side 3-tuples of python ints (extension field scalars,
 base elements embedded as (v, 0, 0)); cancellation behavior — which terms
@@ -108,6 +111,9 @@ class SymExpr:
 
     # -- queries ------------------------------------------------------------
 
+    def is_zero(self) -> bool:
+        return all(v == xf.H_ZERO for v in self.d.values())
+
     def degree(self) -> int:
         if not self.d:
             return -1
@@ -125,3 +131,76 @@ class SymExpr:
                 continue
             bound = max(bound, sum(e * md for e, md in zip(exps, max_degrees)))
         return bound
+
+    def evaluate(self, point: List[Coeff]) -> Coeff:
+        """Host-side exact evaluation (used in tests/oracle checks)."""
+        acc = xf.H_ZERO
+        for k, v in self.d.items():
+            prod = v
+            for i, e in enumerate(k):
+                if e:
+                    prod = xf.h_mul(prod, xf.h_pow(point[i], e))
+            acc = xf.h_add(acc, prod)
+        return acc
+
+    def partial_evaluate(self, assignment: Dict[int, Coeff]) -> "SymExpr":
+        """Substitute constants for some variables (ref
+        multivariate.py:185-201)."""
+        out = SymExpr({})
+        for k, v in self.d.items():
+            coeff = v
+            exps = list(k)
+            for i, e in enumerate(k):
+                if i in assignment and e:
+                    coeff = xf.h_mul(coeff, xf.h_pow(assignment[i], e))
+                    exps[i] = 0
+            term = SymExpr({tuple(exps): coeff})
+            out = out + term
+        return out
+
+    def evaluate_symbolic(self, point: List[List[Coeff]]) -> List[Coeff]:
+        """Compose with univariate polynomials (coefficient lists of
+        extension scalars): returns the coefficients of the resulting
+        univariate polynomial (ref multivariate.py:118-140)."""
+
+        def pmul(a, b):
+            if not a or not b:
+                return []
+            out = [xf.H_ZERO] * (len(a) + len(b) - 1)
+            for i, ca in enumerate(a):
+                for j, cb in enumerate(b):
+                    out[i + j] = xf.h_add(out[i + j], xf.h_mul(ca, cb))
+            return out
+
+        def padd(a, b):
+            n = max(len(a), len(b))
+            return [
+                xf.h_add(
+                    a[i] if i < len(a) else xf.H_ZERO,
+                    b[i] if i < len(b) else xf.H_ZERO,
+                )
+                for i in range(n)
+            ]
+
+        acc: List[Coeff] = []
+        for k, v in self.d.items():
+            prod = [v]
+            for i, e in enumerate(k):
+                for _ in range(e):
+                    prod = pmul(prod, point[i])
+            acc = padd(acc, prod)
+        while acc and acc[-1] == xf.H_ZERO:
+            acc.pop()
+        return acc
+
+    @staticmethod
+    def lift(coeffs: List[Coeff], variable_index: int) -> "SymExpr":
+        """Embed a univariate polynomial as a multivariate one in variable
+        `variable_index` (ref multivariate.py:170-180)."""
+        n = variable_index + 1
+        d = {}
+        for i, c in enumerate(coeffs):
+            exp = [0] * n
+            exp[variable_index] = i
+            d[tuple(exp)] = c
+        return SymExpr(d)

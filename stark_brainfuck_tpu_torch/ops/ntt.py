@@ -192,6 +192,17 @@ def coset_evaluate_with(coeffs, scale, fwd_pack, length: int):
     return ntt_with(_pad_to(f.mul(coeffs, scale[:d]), length), fwd_pack)
 
 
+def coset_evaluate(coeffs, offset: int, root: int, length: int):
+    """Evaluate polynomials (coefficient rows (..., d)) on the coset
+    offset·<root> of size `length`: `FriDomain.evaluate`/`xevaluate`, the
+    JAX package's API, which no prover path calls (held to the JAX
+    package's by `tests/test_torch_fri.py`)."""
+    return coset_evaluate_with(
+        coeffs, scale_table(offset, coeffs.shape[-1], coeffs.device),
+        make_pack(length, root, False, coeffs.device), length,
+    )
+
+
 def coset_interpolate(values, offset: int, root: int):
     """Inverse of coset evaluation (host/verifier use)."""
     n = values.shape[-1]

@@ -105,6 +105,23 @@ class FriDomain:
     def __call__(self, index: int) -> int:
         return f.h_mul(f.h_pow(self.omega, index), self.offset)
 
+    def evaluate(self, coeffs):
+        """Evaluate a base-field polynomial (coeffs (d,)) on the domain
+        (ref fri.py:26-30)."""
+        return nt.coset_evaluate(
+            coeffs[None, :], self.offset, self.omega, self.length)[0]
+
+    def interpolate(self, values):
+        """Interpolate base-field values (length,) -> coefficients
+        (ref fri.py:32-34)."""
+        return nt.coset_interpolate(values[None, :], self.offset, self.omega)[0]
+
+    def xevaluate(self, xcoeffs):
+        """Evaluate an extension polynomial (coeffs (d, 3)) on the domain."""
+        out = nt.coset_evaluate(xcoeffs.movedim(-1, 0), self.offset,
+                                self.omega, self.length)
+        return out.movedim(0, -1)
+
     def xinterpolate(self, values):
         """Interpolate extension values (N, 3) -> coefficients (N, 3)."""
         v = values.movedim(-1, 0)

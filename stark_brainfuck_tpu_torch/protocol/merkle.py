@@ -1,19 +1,25 @@
 """Merkle commitments over canonical leaf byte encodings.
 
-Host trees on `hashlib` (a copy of the JAX package's `protocol/merkle.py`
-without its OpenMP C++ engine, native/hashing.cpp, which this package has
-not ported). Tree shape matches ref `merkle.py` / `salted_merkle.py`
-(BLAKE2b-512, heap-array nodes in one contiguous buffer, index-bit-walk
-auth paths, 24-byte salts). The prover uses these trees below
+Host trees (a copy of the JAX package's `protocol/merkle.py`). Tree shape
+matches ref `merkle.py` / `salted_merkle.py` (BLAKE2b-512, heap-array nodes
+in one contiguous buffer, index-bit-walk auth paths, 24-byte salts). When
+there are at least `NATIVE_MIN_LEAVES` leaves of one length (always so for
+the native codec) the whole tree, leaf hashes and every level, is built by
+the OpenMP C++ engine (native/hashing.cpp, built with g++ at first use; a
+failed build raises) in one call; hashlib builds smaller trees and those
+over leaves of several lengths (the reference codec's pickles), with the
+same bytes. The prover uses these trees below
 `StarkConfig.device_commit_min` and for the FRI tail; the verifier always.
 """
 
 from __future__ import annotations
 
+import ctypes
 from hashlib import blake2b
 from typing import List, Sequence
 
 HASH_LEN = 64
+NATIVE_MIN_LEAVES = 64
 
 
 def _build_nodes_python(payloads: Sequence[bytes], count: int) -> bytearray:
@@ -29,9 +35,26 @@ def _build_nodes_python(payloads: Sequence[bytes], count: int) -> bytearray:
     return nodes
 
 
+def _build_nodes_native(buf: bytes, plen: int, count: int) -> bytearray:
+    """The whole tree over a contiguous (count · plen) payload buffer, in
+    one call of the C++ engine."""
+    from ..native import get_lib
+
+    if len(buf) != count * plen:
+        raise ValueError(f"{len(buf)} payload bytes for {count} leaves of "
+                         f"{plen}")
+    nodes = bytearray(2 * count * HASH_LEN)
+    out = (ctypes.c_char * len(nodes)).from_buffer(nodes)
+    get_lib().merkle_from_payloads(bytes(buf), plen, count, out)
+    del out  # release the buffer export before returning
+    return nodes
+
+
 def _build_nodes_buffer(buf: bytes, plen: int, count: int) -> bytearray:
     """Build the whole tree from a contiguous (count · plen) payload
     buffer."""
+    if count >= NATIVE_MIN_LEAVES:
+        return _build_nodes_native(buf, plen, count)
     payloads = [buf[i * plen : (i + 1) * plen] for i in range(count)]
     return _build_nodes_python(payloads, count)
 
@@ -41,6 +64,10 @@ def _build_nodes(payloads: Sequence[bytes]) -> bytearray:
     assert count & (count - 1) == 0 and count > 0, (
         "number of leaves must be a power of two"
     )
+    if count >= NATIVE_MIN_LEAVES:
+        plen = len(payloads[0])
+        if all(len(p) == plen for p in payloads):
+            return _build_nodes_native(b"".join(payloads), plen, count)
     return _build_nodes_python(payloads, count)
 
 

@@ -103,7 +103,7 @@ from .device_merkle import (
     salt_words_to_buffer,
 )
 from .fri import Fri
-from .merkle import Merkle, SaltBuffer, SaltedMerkle
+from .merkle import NATIVE_MIN_LEAVES, Merkle, SaltBuffer, SaltedMerkle
 from .stream import (
     StreamedSaltedMerkle,
     block_values,
@@ -1233,6 +1233,25 @@ class BrainfuckStark:
         proof = proof_stream.serialize()
         _mark("serialize")
         T = self.tables[0].height
+
+        def per_s(count, *substrings):
+            """count over the summed time of the stages whose labels hold
+            any of `substrings`; None when that time is 0."""
+            s = sum(v for k, v in timer.stages.items()
+                    if any(x in k for x in substrings))
+            return round(count / s) if s > 0 else None
+
+        # NTT butterflies: every coefficient row through the two forward
+        # N-NTTs plus each table's height-H INTTs, whatever ran them
+        logN = N.bit_length() - 1
+        butterflies = (3 + num_base_cols + 3 * num_ext_cols) * (N // 2) * logN
+        for t in self.tables:
+            if t.height > 1:
+                h = t.height
+                butterflies += ((t.base_width + 3 * t.num_ext_columns)
+                                * (h // 2) * (h.bit_length() - 1))
+        # BLAKE2b leaves: base + ext + combination trees at N, plus every
+        # FRI fold round's tree (round 0 reuses the combination tree)
         hash_leaves = 3 * N + sum(
             N >> r for r in range(1, self.fri.num_rounds())
         )
@@ -1241,7 +1260,12 @@ class BrainfuckStark:
             trace_height=T,
             cycles_per_s=round(T / timer.total(), 2),
             proof_bytes=len(proof),
+            ntt_butterflies=butterflies,
+            ntt_butterflies_per_s=per_s(butterflies, "stage_a", "stage_b"),
             hash_leaves=hash_leaves,
+            hash_leaves_per_s=per_s(hash_leaves, "merkle", "fri.prove"),
+            extend_rows_per_s=per_s(
+                sum(t.height for t in self.tables), "extend"),
             fri_round_s=self.fri.last_round_s,
             device=str(dev),
             mesh=(None if mesh is None
@@ -1250,10 +1274,14 @@ class BrainfuckStark:
             ntt_path=self._mesh_ntt_path(),
             stream_classes=splan["B"] if use_stream else None,
             stream_block=splan["S"] if use_stream else None,
+            # the engine of the trees at N (base, extension, combination);
+            # FRI's smaller trees may take another: hashlib below
+            # NATIVE_MIN_LEAVES, host trees below fri_host_min
             hash_path=(
-                "host-hashlib" if not (device_commit or use_stream)
-                else "cuda-blake2b" if dev.type == "cuda"
-                else "torch-plain"
+                ("cuda-blake2b" if dev.type == "cuda" else "torch-plain")
+                if device_commit or use_stream
+                else "host-cpp" if native and N >= NATIVE_MIN_LEAVES
+                else "host-hashlib"
             ),
             blake2b_launches=B.LAUNCHES - launches0[0],
             subntt_launches=kn.LAUNCHES_SUBNTT - launches0[1],

@@ -12,9 +12,12 @@ Semantics match the reference VM (`vm.py:70-306`):
     the derived memory matrix (ref vm.py:172-306).
 
 Implementation is host-side: matrices are emitted as numpy uint64 arrays,
-which the prover moves to the device as int64 tensors (convert.py). Memory is a flat
-python dict from pointer (int mod p) to value, as cells are unbounded ints
-mod p in the reference semantics.
+which the prover moves to the device as int64 tensors (convert.py). By
+default `simulate` records with the C++ recorder (native/vm.cpp, built with
+g++ at first use; a failed build raises); `native=False` runs the python
+recorder, the plain version it is held to. There memory is a flat python
+dict from pointer (int mod p) to value, as cells are unbounded ints mod p
+in the reference semantics.
 """
 
 from __future__ import annotations
@@ -149,11 +152,15 @@ class VirtualMachine:
         return running_time, input_data, "".join(out)
 
     @staticmethod
-    def simulate(program: List[int], input_data: str = ""):
+    def simulate(program: List[int], input_data: str = "", native: bool = True):
         """Execute while recording the algebraic execution trace.
 
-        The python recorder (the JAX package's C++ recorder, native/vm.cpp,
-        is host code that this package has not ported).
+        `native=True` runs the C++ recorder (native/vm.cpp): the python loop
+        costs tens of microseconds a cycle, which at 2^20 cycles is half a
+        minute of setup before proving starts. `native=False` runs the python
+        recorder; both give the same arrays. On a program the C++ recorder
+        refuses (input exhausted, unknown instruction) the python recorder
+        runs and raises its own error.
 
         Returns a dict of numpy uint64 matrices:
           processor   (T+1, 7)  — clk, ip, ci, ni, mp, mv, mvi per cycle
@@ -162,83 +169,129 @@ class VirtualMachine:
           input       (I, 1), output (O, 1)
         plus output_data string.
         """
-        n = len(program)
-        ip = 0
-        mp = 0
-        mv = 0
-        mvi = 0
-        clk = 0
-        ci = program[0] if n > 0 else 0
-        ni = program[1] if n > 1 else 0
-        memory = {}
-        in_ptr = 0
-        out_chars: List[str] = []
+        if native:
+            return _simulate_native(program, input_data)
+        return _simulate_python(program, input_data)
 
-        processor_rows: List[Tuple[int, ...]] = []
-        instruction_rows: List[Tuple[int, int, int]] = [
-            (i, program[i], program[i + 1] if i + 1 < n else 0) for i in range(n)
-        ]
-        input_rows: List[int] = []
-        output_rows: List[int] = []
 
-        while ip < n:
-            processor_rows.append((clk, ip, ci, ni, mp, mv, mvi))
-            instruction_rows.append((ip, ci, ni))
+def _simulate_python(program: List[int], input_data: str):
+    """The python recorder."""
+    n = len(program)
+    ip = 0
+    mp = 0
+    mv = 0
+    mvi = 0
+    clk = 0
+    ci = program[0] if n > 0 else 0
+    ni = program[1] if n > 1 else 0
+    memory = {}
+    in_ptr = 0
+    out_chars: List[str] = []
 
-            if ci == ord("["):
-                ip = program[ip + 1] if mv == 0 else ip + 2
-            elif ci == ord("]"):
-                ip = program[ip + 1] if mv != 0 else ip + 2
-            elif ci == ord("<"):
-                ip += 1
-                mp = (mp - 1) % P
-            elif ci == ord(">"):
-                ip += 1
-                mp = (mp + 1) % P
-            elif ci == ord("+"):
-                ip += 1
-                memory[mp] = (memory.get(mp, 0) + 1) % P
-            elif ci == ord("-"):
-                ip += 1
-                memory[mp] = (memory.get(mp, 0) - 1) % P
-            elif ci == ord("."):
-                ip += 1
-                val = memory.get(mp, 0)
-                output_rows.append(val)
-                out_chars.append(chr(val % 256))
-            elif ci == ord(","):
-                ip += 1
-                assert in_ptr < len(input_data), "input exhausted"
-                memory[mp] = ord(input_data[in_ptr])
-                in_ptr += 1
-                input_rows.append(memory[mp])
-            else:
-                raise AssertionError(f"unrecognized instruction at ip={ip}: {ci}")
+    processor_rows: List[Tuple[int, ...]] = []
+    instruction_rows: List[Tuple[int, int, int]] = [
+        (i, program[i], program[i + 1] if i + 1 < n else 0) for i in range(n)
+    ]
+    input_rows: List[int] = []
+    output_rows: List[int] = []
 
-            clk += 1
-            ci = program[ip] if ip < n else 0
-            ni = program[ip + 1] if ip < n - 1 else 0
-            mv = memory.get(mp, 0)
-            mvi = _inv(mv)
-
+    while ip < n:
         processor_rows.append((clk, ip, ci, ni, mp, mv, mvi))
         instruction_rows.append((ip, ci, ni))
-        instruction_rows.sort(key=lambda r: r[0])
 
-        processor = np.array(processor_rows, dtype=U64).reshape(-1, 7)
-        instruction = np.array(instruction_rows, dtype=U64).reshape(-1, 3)
-        memory_matrix = derive_memory_matrix(processor)
-        inp = np.array(input_rows, dtype=U64).reshape(-1, 1)
-        outp = np.array(output_rows, dtype=U64).reshape(-1, 1)
+        if ci == ord("["):
+            ip = program[ip + 1] if mv == 0 else ip + 2
+        elif ci == ord("]"):
+            ip = program[ip + 1] if mv != 0 else ip + 2
+        elif ci == ord("<"):
+            ip += 1
+            mp = (mp - 1) % P
+        elif ci == ord(">"):
+            ip += 1
+            mp = (mp + 1) % P
+        elif ci == ord("+"):
+            ip += 1
+            memory[mp] = (memory.get(mp, 0) + 1) % P
+        elif ci == ord("-"):
+            ip += 1
+            memory[mp] = (memory.get(mp, 0) - 1) % P
+        elif ci == ord("."):
+            ip += 1
+            val = memory.get(mp, 0)
+            output_rows.append(val)
+            out_chars.append(chr(val % 256))
+        elif ci == ord(","):
+            ip += 1
+            assert in_ptr < len(input_data), "input exhausted"
+            memory[mp] = ord(input_data[in_ptr])
+            in_ptr += 1
+            input_rows.append(memory[mp])
+        else:
+            raise AssertionError(f"unrecognized instruction at ip={ip}: {ci}")
 
-        return {
-            "processor": processor,
-            "memory": memory_matrix,
-            "instruction": instruction,
-            "input": inp,
-            "output": outp,
-            "output_data": "".join(out_chars),
-        }
+        clk += 1
+        ci = program[ip] if ip < n else 0
+        ni = program[ip + 1] if ip < n - 1 else 0
+        mv = memory.get(mp, 0)
+        mvi = _inv(mv)
+
+    processor_rows.append((clk, ip, ci, ni, mp, mv, mvi))
+    instruction_rows.append((ip, ci, ni))
+    instruction_rows.sort(key=lambda r: r[0])
+
+    processor = np.array(processor_rows, dtype=U64).reshape(-1, 7)
+    instruction = np.array(instruction_rows, dtype=U64).reshape(-1, 3)
+    memory_matrix = derive_memory_matrix(processor)
+    inp = np.array(input_rows, dtype=U64).reshape(-1, 1)
+    outp = np.array(output_rows, dtype=U64).reshape(-1, 1)
+
+    return {
+        "processor": processor,
+        "memory": memory_matrix,
+        "instruction": instruction,
+        "input": inp,
+        "output": outp,
+        "output_data": "".join(out_chars),
+    }
+
+
+def _simulate_native(program: List[int], input_data: str):
+    """The C++ recorder (native/vm.cpp), one trace handle a call. When it
+    refuses the program, the python recorder runs so that it raises its own
+    error; if that recorder traces the program instead, the two disagree
+    and this raises RuntimeError."""
+    from ..native import get_vm_lib
+
+    lib = get_vm_lib()
+    prog = np.asarray(program, dtype=U64)
+    inp = np.array([ord(c) for c in input_data], dtype=U64)
+    handle = lib.vm_create()
+    try:
+        rc = lib.vm_simulate(handle, prog.ctypes.data, len(prog),
+                             inp.ctypes.data, len(inp))
+        if rc != 0:
+            _simulate_python(program, input_data)
+            raise RuntimeError(
+                f"the C++ recorder refused (status {rc}) a program that the "
+                "python recorder traced")
+        processor = np.empty((lib.vm_processor_rows(handle), 7), dtype=U64)
+        instruction = np.empty((lib.vm_instruction_rows(handle), 3), dtype=U64)
+        memory = np.empty((lib.vm_memory_rows(handle), 4), dtype=U64)
+        inp_rows = np.empty((lib.vm_input_rows(handle), 1), dtype=U64)
+        out_rows = np.empty((lib.vm_output_rows(handle), 1), dtype=U64)
+        lib.vm_fill(handle, processor.ctypes.data, instruction.ctypes.data,
+                    memory.ctypes.data, inp_rows.ctypes.data,
+                    out_rows.ctypes.data)
+    finally:
+        lib.vm_destroy(handle)
+    return {
+        "processor": processor,
+        "memory": memory,
+        "instruction": instruction,
+        "input": inp_rows,
+        "output": out_rows,
+        "output_data": "".join(chr(int(v) % 256) for v in out_rows[:, 0]),
+    }
 
 
 def derive_memory_matrix(processor: np.ndarray) -> np.ndarray:

@@ -470,7 +470,7 @@ def test_mesh_proof_bytes_equal_single_device_and_jax(ranks, world, key,
         assert g["mesh"]["devices"] == ["cpu"] * world
         assert g["mesh"]["sharded_commit"] == (key != "loop")
         assert g["hash_path"] == (
-            "host-hashlib" if key == "loop" else "torch-plain")
+            "host-cpp" if key == "loop" else "torch-plain")
         used = g["mesh"]["collectives"]
         assert used["all_to_all"]["calls"] == 4 and "roll" in used
         assert ("fold_pairs" in used) == key.startswith("n16384")

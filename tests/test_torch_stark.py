@@ -160,6 +160,31 @@ def test_streamed_proofs_cross_verify(key, backend):
     assert tb.verify(pj), tb.last_rejection
 
 
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_last_metrics_match_jax(streamed):
+    """The port reports every key of the JAX package's `last_metrics`; the
+    work counts are equal, and each rate is a positive int exactly where the
+    JAX package's is one."""
+    if streamed:
+        make, args = _setup("plus4")
+        jb = make(J, config=dict(STREAM))
+        assert jb.prove(*args, xp=np) == _proofs("plus4")[1]
+        tb, _ = _streamed_proof("plus4", "auto")
+        assert tb.use_stream
+    else:
+        jb, _, tb, _ = _proofs("plus4")
+    jm, tm = jb.last_metrics, tb.last_metrics
+    assert set(jm) <= set(tm), set(jm) - set(tm)
+    for key in ("ntt_butterflies", "hash_leaves"):
+        assert type(tm[key]) is int and tm[key] == jm[key], key
+    for key in ("ntt_butterflies_per_s", "hash_leaves_per_s",
+                "extend_rows_per_s"):
+        if jm[key] is None:
+            assert tm[key] is None, key
+        else:
+            assert type(tm[key]) is int and tm[key] > 0, key
+
+
 def test_stream_classes_are_cut_to_the_unit_distance():
     """B is cut to the smallest table unit distance (the transition's row
     shift must stay inside a class) and never below 2."""
