@@ -29,6 +29,15 @@ line each; any failure raises and exits non-zero:
      contiguous `subntt` form; then ntt_full: the composed `ntt_kernel`
      against the u64 network at (19, 2^21) and (27, 2^21), with both times
      and the transform's own bound (two passes over the block of rows);
+     field_kernels: the field layer's kernels (csrc/field.cu) against their
+     plain torch versions, exactly, each launched once and counted: F1
+     (add, sub, mul) on two 2^21-word codewords, at the u64 network's
+     twiddle broadcast and on every pair of edge words; F2 (F_p^3 mul,
+     mul_base) on (2^21, 3) codewords, contiguous and in the extension
+     LDE's strided column layout, and on every pair of edge elements; F3
+     (`_acc_group`) on the base (16 terms), extension (9) and largest
+     quotient (21) groups at N = 2^21, a streamed class's extension group
+     (S = 2^17) and a group of edge weights, ratios and starts;
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
      give the same bytes, and both must verify; the same again with
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
@@ -37,7 +46,8 @@ line each; any failure raises and exits non-zero:
      the largest resident one) on the default NTT path (full_prove) and
      with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
-     launch counts, stage times, peak device memory at each stage mark and
+     launch counts (B1, B2, B3 and F1, F2, F3; F1-F3 above 0 on both
+     paths, as on every other prove of the card), stage times, peak device memory at each stage mark and
      the prover's NTT butterfly, hashed leaf and extended row counts and
      rates (so too each stream_prove below); all proofs byte-identical;
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
@@ -241,6 +251,44 @@ def cuda_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+_L2_FLUSH = []
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 3) -> float:
+    """Device time of one fn() call, without the host's share: `calls`
+    calls captured in one CUDA graph, each after a write of 128 MB that
+    flushes the 50 MB L2 cache, the graph replayed `replays` times between
+    two events, less the same graph of the flushes alone. fn's launches
+    and allocations happen at capture (its launch counts rise by `calls`)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(1 << 24, dtype=torch.int64,
+                                     device="cuda"))
+    flush = _L2_FLUSH[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    times = []
+    for body in (lambda: (flush.fill_(1), fn()), lambda: flush.fill_(1)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                body()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / (calls * replays))
+        del graph
+    return times[0] - times[1]
 
 
 def random_messages(n: int, W: int, msg_len: int, seed: int):
@@ -502,6 +550,205 @@ def check_ntt_kernels():
     return b2, b3
 
 
+# ---------------------------------------------------------------------------
+# F1, F2, F3: the field layer's kernels (csrc/field.cu)
+# ---------------------------------------------------------------------------
+
+# the field words the exactness checks pair up: the edge values of the CPU
+# tests, and for F1, whose plain version is defined on any u64 words, three
+# words from p up
+FIELD_EDGES = (0, 1, 0xFFFFFFFF00000000, 2**32 - 1, 2**32, 2**32 + 1,
+               2**63 % 0xFFFFFFFF00000001, 0xFFFFFFFEFFFFFFFF)
+F1_EDGES = FIELD_EDGES + (0xFFFFFFFF00000001, 0xFFFFFFFF00000002, 2**64 - 1)
+# 32-bit instructions an element of the F_p^3 multiply: 9 multiplies, 6
+# adds, 2 subs (`xf_mul`); of a term of F3 at one position, base and
+# extension: x·step, w_shift·x (3 multiplies), + w_plain (3 adds), the
+# product with the stack word (3 multiplies, or an F_p^3 multiply), and the
+# sum (3 adds); and the 3 adds into acc a position a launch
+XF_MUL_OPS = 9 * GL_MUL_OPS + 6 * GL_ADD_OPS + 2 * GL_SUB_OPS
+ACC_TERM_OPS = {False: 7 * GL_MUL_OPS + 6 * GL_ADD_OPS,
+                True: 4 * GL_MUL_OPS + 6 * GL_ADD_OPS + XF_MUL_OPS}
+# the u64 network's stage whose twiddle broadcast F1 is timed at: blocks of
+# 2^11 words, the odd half times tw[None, None, :]
+F1_TWIDDLE_LOG2_BLOCK = 11
+
+
+def acc_groups():
+    """{group: (terms, extension stack?)} of the prove's `_acc_group`
+    calls: the base columns, the extension columns and the largest table's
+    quotients (the counts do not depend on the program or the
+    challenges)."""
+    bfs, _ = make_stark("++++", 0, "cpu")
+    one = [(1, 0, 0)]
+    quotients = [len(t.all_quotient_degree_bounds(one * 11, one * 5))
+                 for t in bfs.tables]
+    return {"base": (sum(t.base_width for t in bfs.tables), False),
+            "ext": (sum(t.num_ext_columns for t in bfs.tables), True),
+            "quotients": (max(quotients), True)}
+
+
+def edge_words(words):
+    from stark_brainfuck_tpu_torch.convert import u64_to_tensor
+
+    return u64_to_tensor(list(words), "cuda")
+
+
+def field_case(kernel, run, run_plain, nbytes, ops, timed=None, reps=20,
+               **at):
+    """One shape of F1, F2 or F3: the kernel, launched once and counted,
+    against its plain version on the same card tensors, exactly. Times of
+    `timed` (the kernel alone, `run` by default) and of the plain version:
+    ms and plain_ms their device time a call (`graph_ms`, cold L2),
+    call_ms and plain_call_ms CUDA events around one call from the host
+    (the host's share included, as a caller sees it); and the bound of the
+    work."""
+    reset_counts()
+    got = run()
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts}, kernel: 1}, (kernel, at,
+                                                             counts)
+    want = run_plain()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (kernel, at, got.shape, want.shape)
+    err = max_abs_err(got.reshape(-1, 1), want.reshape(-1, 1))
+    assert err == 0.0, f"{kernel} differs from its plain version at {at}"
+    del got, want
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = {"kernel": kernel, **at, "max_abs_err": err,
+           "ms": graph_ms(timed or run),
+           "plain_ms": graph_ms(run_plain, calls=1),
+           "call_ms": cuda_ms(timed or run, reps=reps),
+           "plain_call_ms": cuda_ms(run_plain, reps=3),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("field_kernels", **row)
+    return row
+
+
+def field_kernels():
+    """F1, F2 and F3 against their plain versions on the card, exactly, at
+    the full-size prove's shapes (FRI 2^21) and on edge values. F1: add,
+    sub and mul of two 2^21-word codewords, the u64 network's twiddle
+    broadcast, every pair of edge words. F2: mul of (2^21, 3) extension
+    codewords, contiguous and in the strided layout of the extension LDE's
+    columns (`movedim`), mul_base, every pair of edge elements. F3: one
+    `_acc_group` call each for the base, extension and largest quotient
+    group at N = 2^21, a streamed class's extension group (S = 2^17, the
+    class's strided stack) and a group of edge weights, ratios and starts.
+    Returns {kernel: [rows]}."""
+    from stark_brainfuck_tpu_torch.ops import field as F
+    from stark_brainfuck_tpu_torch.ops import field_kernels as FK
+    from stark_brainfuck_tpu_torch.ops import xfield as X
+    from stark_brainfuck_tpu_torch.protocol.stark import BrainfuckStark
+
+    n = 1 << LOG2_FRI
+    rows = {"f1": [], "f2": [], "f3": []}
+    ops = {"add": (F.add, F.add_plain, GL_ADD_OPS),
+           "sub": (F.sub, F.sub_plain, GL_SUB_OPS),
+           "mul": (F.mul, F.mul_plain, GL_MUL_OPS)}
+    a, b = random_field(2, n, 300)
+    for name, (fn, plain, per) in ops.items():
+        rows["f1"].append(field_case(
+            "f1", lambda: fn(a, b), lambda: plain(a, b), 24 * n, per * n,
+            op=name, shape=[n], form="contiguous"))
+    half = 1 << (F1_TWIDDLE_LOG2_BLOCK - 1)
+    x = random_field(NTT_ROWS["ext"], n, 301).view(NTT_ROWS["ext"], -1,
+                                                   2 * half)
+    odd, tw = x[:, :, half:], random_field(1, half, 302)[0][None, None, :]
+    rows["f1"].append(field_case(
+        "f1", lambda: F.mul(odd, tw), lambda: F.mul_plain(odd, tw),
+        16 * odd.numel() + 8 * half, GL_MUL_OPS * odd.numel(), op="mul",
+        shape=list(odd.shape), form="twiddle broadcast tw[None, None, :]"))
+    del x, odd
+    e = edge_words(F1_EDGES)
+    ea, eb = e.repeat_interleave(e.numel()), e.repeat(e.numel())
+    for name, (fn, plain, per) in ops.items():
+        rows["f1"].append(field_case(
+            "f1", lambda: fn(ea, eb), lambda: plain(ea, eb), 24 * ea.numel(),
+            per * ea.numel(), reps=5, op=name, shape=[ea.numel()],
+            form="edge word pairs"))
+
+    xa, xb = random_field(3, n, 310).T, random_field(3, n, 311).T.contiguous()
+    base = random_field(1, n, 312)[0]
+    xa_c = xa.contiguous()
+    for form, lhs in (("contiguous", xa_c),
+                      ("strided columns (movedim)", xa)):
+        rows["f2"].append(field_case(
+            "f2", lambda: X.mul(lhs, xb), lambda: X.mul_plain(lhs, xb),
+            72 * n, XF_MUL_OPS * n, op="mul", shape=[n, 3], form=form))
+    rows["f2"].append(field_case(
+        "f2", lambda: X.mul_base(xa_c, base),
+        lambda: X.mul_base_plain(xa_c, base), 56 * n, 3 * GL_MUL_OPS * n,
+        op="mul_base", shape=[n, 3], form="contiguous"))
+    del xa, xb, xa_c, base
+    x3 = edge_words(FIELD_EDGES)
+    x3 = torch.stack(torch.meshgrid(x3, x3, x3, indexing="ij"),
+                     dim=-1).reshape(-1, 3)
+    pa, pb = x3.repeat_interleave(x3.shape[0], 0), x3.repeat(x3.shape[0], 1)
+    rows["f2"].append(field_case(
+        "f2", lambda: X.mul(pa, pb), lambda: X.mul_plain(pa, pb),
+        72 * pa.shape[0], XF_MUL_OPS * pa.shape[0], reps=5, op="mul",
+        shape=list(pa.shape), form="edge element pairs"))
+    pw = pb[:, 0].contiguous()
+    rows["f2"].append(field_case(
+        "f2", lambda: X.mul_base(pa, pw), lambda: X.mul_base_plain(pa, pw),
+        56 * pa.shape[0], 3 * GL_MUL_OPS * pa.shape[0], reps=5,
+        op="mul_base", shape=list(pa.shape), form="edge element pairs"))
+    del x3, pa, pb, pw
+
+    stark = BrainfuckStark.__new__(BrainfuckStark)  # `_acc_group` reads no state
+    cases = [(group, terms, ext, n, "resident")
+             for group, (terms, ext) in acc_groups().items()]
+    cases.append(("ext", cases[1][1], True, STREAM_S, "streamed class"))
+    seed = 320
+    for group, terms, ext, length, form in cases:
+        seed += 10
+        acc = random_field(length, 3, seed)
+        if form == "streamed class":
+            # block_values' (T, 3, S) rows seen as (T, S, 3)
+            stack = random_field(terms * 3, length, seed + 1).view(
+                terms, 3, length).movedim(1, -1)
+        elif ext:
+            stack = random_field(terms * length, 3, seed + 1).view(
+                terms, length, 3)
+        else:
+            stack = random_field(terms, length, seed + 1)
+        w = random_field(terms * 2, 3, seed + 2).view(terms, 2, 3)
+        ratios, starts = random_field(2, terms, seed + 3)
+        scratch = acc.clone()
+        term_ops = ACC_TERM_OPS[ext] * terms + 3 * GL_ADD_OPS
+        rows["f3"].append(field_case(
+            "f3",
+            lambda: stark._acc_group(acc.clone(), stack, w, ratios, starts,
+                                     length=length),
+            lambda: stark._acc_group_plain(acc, stack, w, ratios, starts,
+                                           length=length),
+            stack.numel() * 8 + 48 * length + 64 * terms,
+            term_ops * length,
+            timed=lambda: FK.acc_group(scratch, stack, w, ratios, starts,
+                                       length),
+            group=group, terms=terms, n=length, stack=list(stack.shape),
+            form=form))
+        del acc, stack, scratch
+    # edge weights, ratios (0, 1, p - 1 among them) and starts
+    terms = len(FIELD_EDGES)
+    e = edge_words(FIELD_EDGES)
+    acc = random_field(4096, 3, 400)
+    stack = random_field(terms * 4096, 3, 401).view(terms, 4096, 3)
+    w = torch.stack([e.roll(k) for k in range(6)], dim=-1).view(terms, 2, 3)
+    ratios, starts = e, e.roll(3)
+    rows["f3"].append(field_case(
+        "f3",
+        lambda: stark._acc_group(acc.clone(), stack, w, ratios, starts,
+                                 length=4096),
+        lambda: stark._acc_group_plain(acc, stack, w, ratios, starts,
+                                       length=4096),
+        stack.numel() * 8 + 48 * 4096 + 64 * terms,
+        (ACC_TERM_OPS[True] * terms + 3 * GL_ADD_OPS) * 4096, reps=5,
+        group="edges", terms=terms, n=4096, stack=list(stack.shape),
+        form="edge weights, ratios and starts"))
+    return rows
+
+
 def b2_sweep():
     """Times B2's two four-step passes and the whole transform at the
     extension shape (27 rows of 2^21) under several tile shapes (the
@@ -742,8 +989,8 @@ def make_stark(src: str, seed: int, device, trace=None, **config):
 
 def profile_prove(bfs, args, out_dir):
     """One prove under torch.profiler: device time by kernel name, the
-    device's busy share of the wall time, and B1's share; the full table
-    goes to out_dir/profile_prove.txt."""
+    device's busy share of the wall time, and B1's and F1-F3's device time;
+    the full table goes to out_dir/profile_prove.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -762,12 +1009,17 @@ def profile_prove(bfs, args, out_dir):
     device_s = sum(e.self_device_time_total for e in events) / 1e6
     b1_s = sum(e.self_device_time_total for e in events
                if "blake2b" in e.key) / 1e6
+    field_s = {name: sum(e.self_device_time_total for e in events
+                         if name in e.key) / 1e6
+               for name in ("gl_binary_kernel", "xf_binary_kernel",
+                            "acc_group_kernel")}
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_prove.txt"), "w") as fh:
         fh.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
     emit("profile", wall_s=wall, device_busy_s=device_s,
          device_busy_share=device_s / wall, b1_device_s=b1_s,
+         field_kernels_device_s=field_s,
          top=[{"kernel": e.key[:80], "calls": e.count,
                "device_s": e.self_device_time_total / 1e6}
               for e in events[:12]])
@@ -784,20 +1036,32 @@ def rates(bfs):
 
 def reset_counts():
     from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
 
     B.LAUNCHES = 0
     K.LAUNCHES_SUBNTT = 0
     K.LAUNCHES_TWIDDLE = 0
+    FK.LAUNCHES_ELEMENTWISE = 0
+    FK.LAUNCHES_XFIELD = 0
+    FK.LAUNCHES_ACC = 0
 
 
 def read_counts():
-    """Launches of B1, B2 and B3 since the last reset_counts()."""
+    """Launches of B1, B2, B3 and F1, F2, F3 since the last
+    reset_counts()."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
+    from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
 
     return {"b1": B.LAUNCHES, "b2": K.LAUNCHES_SUBNTT,
-            "b3": K.LAUNCHES_TWIDDLE}
+            "b3": K.LAUNCHES_TWIDDLE, "f1": FK.LAUNCHES_ELEMENTWISE,
+            "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC}
+
+
+def b_counts(counts):
+    """The B1, B2 and B3 launches of a read_counts() dict."""
+    return {k: counts[k] for k in ("b1", "b2", "b3")}
 
 
 def full_proves(src, smi):
@@ -834,6 +1098,8 @@ def full_proves(src, smi):
         counts = read_counts()
         assert got == proof, f"{phase}: seeded proves differ"
         assert counts["b1"] > 0, f"{phase}: launched no B1 kernel"
+        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (
+            f"{phase}: a field kernel was not launched: {counts}")
         runs[phase].append({
             "prove_s": wall, "launches": counts,
             "stages_s": bfs.last_metrics["stages_s"],
@@ -1088,6 +1354,8 @@ def stream_proves(log2_cycles, smi, plans):
             proof = got
             assert bfs.verify(got), f"stream_prove: {bfs.last_rejection}"
         assert got == proof, f"stream_prove: bytes differ at {(kind, config)}"
+        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (kind, config,
+                                                                counts)
         m = bfs.last_metrics
         mxu = config.get("ntt_backend") == "mxu"
         if kind != "resident":
@@ -1155,12 +1423,14 @@ def ref_codec_bytes(native_proof):
                                ntt_backend=backend)
         got, wall, counts = timed_prove(bfs, args)
         proof = proof or got
-        launches.update({"b1": counts["b1"]} if backend == "auto" else
-                        {"b2": counts["b2"], "b3": counts["b3"]})
+        launches.update(
+            {k: counts[k] for k in ("b1", "f1", "f2", "f3")}
+            if backend == "auto" else {"b2": counts["b2"], "b3": counts["b3"]})
         assert got == proof, "ref_codec_bytes: the NTT paths differ"
         assert got != native_proof, "ref_codec_bytes: equals the native proof"
         assert bfs.verify(got), bfs.last_rejection
         assert counts["b1"] > 0, counts
+        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, counts
         assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "mxu")
         emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
              fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
@@ -1394,7 +1664,7 @@ def rank_kernels(mesh, payload):
     out = {"rank": mesh.rank, "factors": [R, C], "cases": []}
 
     def case(kernel, want, **at):
-        got = read_counts()
+        got = b_counts(read_counts())
         assert got == {"b1": 0, "b2": 0, "b3": 0, **want}, (kernel, at, got)
         out["cases"].append({"kernel": kernel, **at, "max_abs_err": 0.0})
 
@@ -1513,7 +1783,8 @@ def dntt_check():
             for rank, r in enumerate(rs):
                 assert r["max_abs_err"] == 0.0, (
                     f"dntt_check: rank {rank} of {world} differs ({route})")
-                assert r["launches"] == want, (world, route, rank, r)
+                assert b_counts(r["launches"]) == want, (world, route,
+                                                         rank, r)
                 assert r["block"] == [MESH_DNTT_ROWS, (1 << LOG2_FRI) // world]
             emit("dntt_check", world=world, route=route,
                  rows=MESH_DNTT_ROWS, n=1 << LOG2_FRI, max_abs_err=0.0,
@@ -1595,6 +1866,8 @@ def mesh_prove(src, want: bytes, smi, world=2):
                 f"mesh_prove: rank {rank} ({backend}) differs from full_prove")
             c = r["launches"]
             assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
+            assert min(c[k] for k in ("f1", "f2", "f3")) > 0, (backend, rank,
+                                                               c)
             assert (c["b2"], c["b3"]) == (
                 (4, 2) if backend == "mxu" else (0, 0)), (backend, rank, c)
         launches[backend] = [r["launches"] for r in rs]
@@ -1618,19 +1891,21 @@ def mesh_prove(src, want: bytes, smi, world=2):
 
 
 def kernel_entry(name, source, replaces, launches, launches_streamed,
-                 launches_mesh, launches_ref, rows, main, at):
+                 launches_mesh, launches_ref, rows, main, at, no_library,
+                 replaces_note=None):
     """One row of the kernels line: ms, plain_ms and bound at the main
     shape `rows[main]`, the largest error over every checked shape;
     `launches` of the resident full-size prove, `launches_streamed` of the
     streamed one (32 classes), `launches_mesh` of one rank of the 2-rank
     mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14 (B2
-    and B3: on the mxu path)."""
+    and B3: on the mxu path); `no_library` says why library_ms is null."""
     main_shape = rows[main]
     return {
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
+        **({"replaces_note": replaces_note} if replaces_note else {}),
         "launches": launches,
         "launches_streamed": launches_streamed,
         "launches_mesh_per_rank": launches_mesh,
@@ -1641,6 +1916,7 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
+        "library_ms_null_because": no_library,
         "at": {k: main_shape[k] for k in at},
     }
 
@@ -1737,6 +2013,9 @@ def main():
         check_b2_every_size()
         b2, b3 = check_ntt_kernels()
 
+        # 4b. F1, F2, F3 against their plain versions
+        f_rows = field_kernels()
+
     # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
     src = STREAM_SRC
     proof_small, _ = bytes_across_devices("bytes_across_devices", src)
@@ -1775,8 +2054,9 @@ def main():
         assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
         for run in runs[1:]:
             assert run["launches"]["b1"] > runs[0]["launches"]["b1"], run
-        streamed = {"b1": runs[1]["launches"]["b1"], **{
-            k: runs[2]["launches"][k] for k in ("b2", "b3")}}
+        streamed = {**{k: runs[1]["launches"][k]
+                       for k in ("b1", "f1", "f2", "f3")},
+                    **{k: runs[2]["launches"][k] for k in ("b2", "b3")}}
         assert min(streamed.values()) > 0, streamed
 
         # 8. the reference codec, the DEBUG checks, the polynomial toolbox,
@@ -1791,7 +2071,8 @@ def main():
     if opts.mesh:
         print(smi, flush=True)
         return
-    mesh_counts = {"b1": on_mesh["auto"][0]["b1"],
+    mesh_counts = {**{k: on_mesh["auto"][0][k]
+                      for k in ("b1", "f1", "f2", "f3")},
                    "b2": on_mesh["mxu"][0]["b2"],
                    "b3": on_mesh["mxu"][0]["b3"]}
 
@@ -1803,7 +2084,8 @@ def main():
                      "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
                      launches["full_prove"][0]["b1"], streamed["b1"],
                      mesh_counts["b1"], ref_counts["b1"], b1, 3,
-                     ("n", "W", "msg_len")),
+                     ("n", "W", "msg_len"),
+                     "no PyTorch call computes BLAKE2b"),
         kernel_entry("subntt", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:204",
                      counts["b2"], streamed["b2"], mesh_counts["b2"],
@@ -1811,13 +2093,37 @@ def main():
                      next(i for i, row in enumerate(b2)
                           if (row["stage"], row["form"])
                           == ("ext", "rows_transposed")),
-                     ("form", "rows", "m")),
+                     ("form", "rows", "m"),
+                     "no PyTorch call computes a Goldilocks NTT"),
         kernel_entry("twiddle_outer", "stark_brainfuck_tpu_torch/csrc/ntt.cu",
                      "stark_brainfuck_tpu/ops/pallas_ntt.py:276",
                      counts["b3"], streamed["b3"], mesh_counts["b3"],
                      ref_counts["b3"], b3, 1,
-                     ("rows", "r", "c")),
+                     ("rows", "r", "c"),
+                     "no PyTorch call computes a mod-p multiply"),
     ]
+    # F1-F3 stand for XLA's fusion of the JAX package's field arithmetic,
+    # no Pallas kernel; "replaces" names the function each one computes
+    field_src = "stark_brainfuck_tpu_torch/csrc/field.cu"
+    full = launches["full_prove"][0]
+    for key, name, replaces, what, main, at in (
+            ("f1", "gl_elementwise", "stark_brainfuck_tpu/ops/field.py:77",
+             "field.add:44, sub:52, mul:77",
+             next(i for i, r in enumerate(f_rows["f1"])
+                  if (r["op"], r["form"]) == ("mul", "contiguous")),
+             ("op", "shape", "form")),
+            ("f2", "xf_elementwise", "stark_brainfuck_tpu/ops/xfield.py:61",
+             "xfield.mul:61, mul_base:83", 0, ("op", "shape", "form")),
+            ("f3", "acc_group", "stark_brainfuck_tpu/protocol/stark.py:765",
+             "BrainfuckStark._acc_group:765",
+             next(i for i, r in enumerate(f_rows["f3"])
+                  if r["group"] == "quotients"),
+             ("group", "terms", "n", "form"))):
+        kernels.append(kernel_entry(
+            name, field_src, replaces, full[key], streamed[key],
+            mesh_counts[key], ref_counts[key], f_rows[key], main, at,
+            "no PyTorch call computes a mod-p multiply",
+            replaces_note=f"no pl.pallas_call: the XLA-fused form of {what}"))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ kernels and the host runtime.
 
 Every `csrc/<name>.cu` has a plain C interface. `build` compiles each one
 with nvcc for `sm_90a` into `.torch_kernels/lib<name>-<key>.so` at the
-repository root, keyed by the source's content and the compiler flags, so
-an unchanged source is never rebuilt; several sources build in parallel,
+repository root, keyed by the content of the source and of the headers
+beside it (`csrc/*.cuh`) and by the compiler flags, so an unchanged source
+is never rebuilt; several sources build in parallel,
 one nvcc each, all started together. nvcc's report (`-Xptxas -v`: registers,
 shared memory, spills per kernel) is kept beside each library as `.log`.
 `build_host` does the same for the host runtime's C++ sources,
@@ -73,12 +74,19 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str, flags: List[str], stem: str) -> str:
-    """Where the library of `source` lives for its current content."""
-    with open(source, "rb") as fh:
-        key = hashlib.blake2b(
-            fh.read() + " ".join(flags).encode(), digest_size=8
-        ).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{stem}-{key}.so")
+    """Where the library of `source` lives for the current content of the
+    source and of every header beside it (`*.cuh`, which a source may
+    include): a changed header must not reuse a stale library."""
+    directory = os.path.dirname(source)
+    headers = [os.path.join(directory, name)
+               for name in sorted(os.listdir(directory))
+               if name.endswith(".cuh")]
+    key = hashlib.blake2b(digest_size=8)
+    for path in [source, *headers]:
+        with open(path, "rb") as fh:
+            key.update(fh.read())
+    key.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()}.so")
 
 
 def _build(sources: Dict[str, str], prefix: str,

@@ -11,6 +11,12 @@ JAX package's `ops/field.py` is written here over int64 with three rules:
 Constants of 2^63 or more (p itself) appear as their signed equivalents.
 Multiplication builds the exact 128-bit product from 32-bit halves and folds
 it with 2^64 ≡ 2^32 - 1 (mod p), as in the reference.
+
+`add`, `sub` and `mul` take a CUDA tensor to kernel F1 (`field_kernels`,
+`csrc/field.cu`: one launch and one pass over the operands, where the torch
+form below is 10 to 47 int64 ops) and a CPU tensor to `add_plain`,
+`sub_plain` and `mul_plain`, that torch form. The plain versions run on any
+device when called by name; the kernel is held to them bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import to_i64
+from . import field_kernels as fk
 
 P = 0xFFFFFFFF00000001  # 2^64 - 2^32 + 1
 M32 = 0xFFFFFFFF  # 2^32 - 1 == 2^64 - p (the folding constant)
@@ -51,15 +58,39 @@ def const(v: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def add(a, b):
-    """(a + b) mod p, canonical inputs -> canonical output."""
+    """(a + b) mod p, canonical inputs -> canonical output; broadcast."""
+    device = fk.card_device(a, b)
+    if device is not None:
+        return fk.gl_binary(fk.ADD, a, b, device)
+    return add_plain(a, b)
+
+
+def sub(a, b):
+    """(a - b) mod p, canonical inputs -> canonical output; broadcast."""
+    device = fk.card_device(a, b)
+    if device is not None:
+        return fk.gl_binary(fk.SUB, a, b, device)
+    return sub_plain(a, b)
+
+
+def mul(a, b):
+    """(a · b) mod p, canonical output; broadcast."""
+    device = fk.card_device(a, b)
+    if device is not None:
+        return fk.gl_binary(fk.MUL, a, b, device)
+    return mul_plain(a, b)
+
+
+def add_plain(a, b):
+    """`add` as int64 torch ops."""
     s = a + b
     # wrapped iff s < a (unsigned); true sum = s + 2^64 ≡ s + (2^32 - 1)
     s = torch.where(_ult(s, a), s + M32, s)
     return torch.where(_ge_p(s), s - P_I64, s)
 
 
-def sub(a, b):
-    """(a - b) mod p, canonical inputs -> canonical output."""
+def sub_plain(a, b):
+    """`sub` as int64 torch ops."""
     d = a - b
     # borrowed iff a < b; wrapped d = a-b+2^64, want a-b+p = d - (2^32-1)
     return torch.where(_ult(a, b), d - M32, d)
@@ -83,8 +114,9 @@ def reduce128(hi, lo):
     return torch.where(_ge_p(r), r - P_I64, r)
 
 
-def mul(a, b):
-    """(a · b) mod p via the exact 128-bit product from 32-bit halves."""
+def mul_plain(a, b):
+    """`mul` as int64 torch ops: the exact 128-bit product from 32-bit
+    halves, then `reduce128`."""
     al = a & M32
     ah = _hi32(a)
     bl = b & M32
@@ -176,9 +208,11 @@ def sample_bytes(byte_array: bytes) -> int:
     return acc % P
 
 
-def geometric_rows(starts, ratios, count: int):
+def geometric_rows(starts, ratios, count: int, mul_fn=None):
     """Given (c,) tensors `starts` and `ratios`, the (c, count) tensor
-    out[i, j] = starts[i] · ratios[i]^j, by log-depth doubling."""
+    out[i, j] = starts[i] · ratios[i]^j, by log-depth doubling with
+    `mul_fn` (`mul` by default)."""
+    mul_fn = mul_fn or mul
     c = starts.shape[0]
     if count <= 0:
         return torch.zeros((c, 0), dtype=torch.int64, device=starts.device)
@@ -187,10 +221,10 @@ def geometric_rows(starts, ratios, count: int):
     length = 1
     while length < count:
         take = min(length, count - length)
-        out = torch.cat([out, mul(out[:, :take], factor[:, None])], dim=1)
+        out = torch.cat([out, mul_fn(out[:, :take], factor[:, None])], dim=1)
         length += take
         if length < count:
-            factor = mul(factor, factor)
+            factor = mul_fn(factor, factor)
     return out
 
 

@@ -215,8 +215,8 @@ def make_kernel_plan(n: int, root: int, inverse: bool = False,
 
 def subntt_plain(x, sub: SubPlan):
     """The radix-2 network of `ops/ntt.py` along each row, then the scale."""
-    out = nt.ntt_with(x, sub.pack)
-    return out if sub.scale == 1 else f.mul(out, f.const(sub.scale, out))
+    out = nt.ntt_with(x, sub.pack, plain=True)
+    return out if sub.scale == 1 else f.mul_plain(out, f.const(sub.scale, out))
 
 
 def _strided_view(flat, batches: int, nvec: int, m: int, st: Strides):
@@ -239,7 +239,8 @@ def twiddle_outer_plain(y, plan: KernelNttPlan):
     """Row g, column j times w^((g mod c)·j): two field multiplies with the
     gathered lo and hi table rows."""
     b = torch.arange(y.shape[0], device=y.device) % plan.c
-    return f.mul(f.mul(y, plan.tw_lo[b % 128]), plan.tw_hi[b // 128])
+    return f.mul_plain(f.mul_plain(y, plan.tw_lo[b % 128]),
+                       plan.tw_hi[b // 128])
 
 
 # ---------------------------------------------------------------------------

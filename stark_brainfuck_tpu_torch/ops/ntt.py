@@ -111,11 +111,17 @@ def _make_four_step_pack(n: int, root: int, inverse: bool, device):
     )
 
 
-def ntt_with(values, pack):
+def ntt_with(values, pack, plain: bool = False):
     """Transform along the last axis with a precomputed pack.
     Forward: out[k] = Σ_j v[j]·root^(jk); with pack.n_inv set the result is
-    scaled by it (inverse transform)."""
+    scaled by it (inverse transform). `plain` runs the radix-2 network on
+    the plain field operations on any device (kernel B2's yardstick), not
+    on kernel F1."""
+    mul, add, sub = ((f.mul_plain, f.add_plain, f.sub_plain) if plain
+                     else (f.mul, f.add, f.sub))
     if isinstance(pack, FourStepPack):
+        if plain:
+            raise ValueError("the plain network takes a radix-2 pack")
         return _ntt_four_step(values, pack)
     n = values.shape[-1]
     if n <= 1:
@@ -131,11 +137,11 @@ def ntt_with(values, pack):
         x = x.reshape((b, n // m, m))
         even = x[:, :, :half]
         odd = x[:, :, half:]
-        t = f.mul(odd, tw[None, None, :])
-        x = torch.cat([f.add(even, t), f.sub(even, t)], dim=-1)
+        t = mul(odd, tw[None, None, :])
+        x = torch.cat([add(even, t), sub(even, t)], dim=-1)
     x = x.reshape(shape)
     if pack.n_inv is not None:
-        x = f.mul(x, pack.n_inv)
+        x = mul(x, pack.n_inv)
     return x
 
 

@@ -5,6 +5,12 @@ An extension element batch is an int64 tensor with trailing dim 3
 `field.py`. Multiplication is the unrolled 9-product schoolbook with the
 closed-form reduction X^3 ≡ X - 1, X^4 ≡ X^2 - X; inversion is the adjugate
 of the multiplication matrix plus one base-field inversion.
+
+`mul` and `mul_base` take a CUDA tensor to kernel F2 (`field_kernels`,
+`csrc/field.cu`: one thread an extension element, one launch) and a CPU
+tensor to `mul_plain` and `mul_base_plain`, the torch form over the plain
+base-field operations; `add` and `sub` are `field.add` and `field.sub` over
+the coefficient words (kernel F1 on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import torch
 
 from ..convert import to_i64
 from . import field as f
+from . import field_kernels as fk
 from .field import P
 
 
@@ -48,10 +55,27 @@ def sub(a, b):
 
 
 def mul(a, b):
-    """Schoolbook product then reduce by X^3 = X - 1."""
+    """a · b in F_p^3, broadcast over the leading axes."""
+    device = fk.card_device(a, b)
+    if device is not None:
+        return fk.xf_binary(fk.XMUL, a, b, device)
+    return mul_plain(a, b)
+
+
+def mul_base(a, b):
+    """Extension (...,3) times base (...,) — 3 base muls instead of 9."""
+    device = fk.card_device(a, b)
+    if device is not None:
+        return fk.xf_binary(fk.XMUL_BASE, a, b, device)
+    return mul_base_plain(a, b)
+
+
+def mul_plain(a, b):
+    """`mul` as torch ops: the schoolbook product, then reduce by
+    X^3 = X - 1."""
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    m, ad, sb = f.mul, f.add, f.sub
+    m, ad, sb = f.mul_plain, f.add_plain, f.sub_plain
 
     c0 = m(a0, b0)
     c1 = ad(m(a0, b1), m(a1, b0))
@@ -67,9 +91,9 @@ def mul(a, b):
     return torch.stack([r0, r1, r2], dim=-1)
 
 
-def mul_base(a, b):
-    """Extension (...,3) times base (...,) — 3 base muls instead of 9."""
-    return f.mul(a, b[..., None])
+def mul_base_plain(a, b):
+    """`mul_base` as torch ops."""
+    return f.mul_plain(a, b[..., None])
 
 
 def pow_const(a, exponent: int):

@@ -67,6 +67,7 @@ from ..models.processor import ProcessorTable
 from ..models.table import roundup_npo2
 from ..ops import blake2b as B
 from ..ops import field as f
+from ..ops import field_kernels as fk
 from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
 from ..ops import scan as sc
@@ -128,11 +129,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _tree_sum(x):
-    """Modular sum over axis 0 via log-depth halving."""
+    """Modular sum over axis 0 via log-depth halving (plain field adds)."""
     while x.shape[0] > 1:
         half = x.shape[0] // 2
         rest = x[2 * half :]
-        x = f.add(x[:half], x[half : 2 * half])
+        x = f.add_plain(x[:half], x[half : 2 * half])
         if rest.shape[0]:
             x = torch.cat([x, rest], dim=0)
     return x[0]
@@ -530,26 +531,41 @@ class BrainfuckStark:
 
     def _acc_group(self, acc, stack, w_pairs_g, ratios_g, opow_g,
                    chunk: int = 16, length: Optional[int] = None):
-        """acc += Σ_t (w_plain_t + w_shift_t·x^s_t)·stack[t], chunked.
+        """acc += Σ_t (w_plain_t + w_shift_t·x^s_t)·stack[t].
         stack: (T, N) base or (T, N, 3) extension terms. The x^s rows are
         geometric progressions offset^s·(omega^s)^i. `length` takes N's
         place for the streamed, per-class accumulation, where opow_g holds
         the class's starts (offset·ω^b)^s and ratios_g the per-position
-        ratios (ω^B)^s."""
+        ratios (ω^B)^s. On a CUDA device one launch of kernel F3
+        (`field_kernels.acc_group`), which updates acc in place and makes no
+        (T, N, 3) temporary; on the CPU `_acc_group_plain`, chunked."""
+        N = length if length is not None else self.fri.domain.length
+        if fk.card_device(acc, stack) is not None:
+            return fk.acc_group(acc, stack, w_pairs_g, ratios_g, opow_g, N)
+        return self._acc_group_plain(acc, stack, w_pairs_g, ratios_g, opow_g,
+                                     chunk, N)
+
+    def _acc_group_plain(self, acc, stack, w_pairs_g, ratios_g, opow_g,
+                         chunk: int = 16, length: Optional[int] = None):
+        """`_acc_group` as torch ops on the plain field operations, `chunk`
+        terms at a time: the x^s rows, the weighted terms and their tree
+        sum as (chunk, N, 3) tensors."""
         N = length if length is not None else self.fri.domain.length
         base_stream = stack.dim() == 2
         for start in range(0, stack.shape[0], chunk):
             stop = min(start + chunk, stack.shape[0])
-            xs = f.geometric_rows(opow_g[start:stop], ratios_g[start:stop], N)
+            xs = f.geometric_rows(opow_g[start:stop], ratios_g[start:stop], N,
+                                  f.mul_plain)
             w_plain = w_pairs_g[start:stop, 0]
             w_shift = w_pairs_g[start:stop, 1]
-            c = xf.mul_base(w_shift[:, None, :].expand(stop - start, N, 3), xs)
-            c = f.add(c, w_plain[:, None, :])
+            c = xf.mul_base_plain(
+                w_shift[:, None, :].expand(stop - start, N, 3), xs)
+            c = f.add_plain(c, w_plain[:, None, :])
             if base_stream:
-                contrib = xf.mul_base(c, stack[start:stop])
+                contrib = xf.mul_base_plain(c, stack[start:stop])
             else:
-                contrib = xf.mul(c, stack[start:stop])
-            acc = xf.add(acc, _tree_sum(contrib))
+                contrib = xf.mul_plain(c, stack[start:stop])
+            acc = f.add_plain(acc, _tree_sum(contrib))
         return acc
 
     def _table_quotient_stack(self, ti, base_cw, ext_cw, challenges,
@@ -943,7 +959,9 @@ class BrainfuckStark:
         _mark = timer.mark
         use_stream = self.use_stream
         self.last_commit_resumes = []
-        launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE)
+        launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE,
+                     fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD,
+                     fk.LAUNCHES_ACC)
 
         # 1. populate and pad (ref brainfuck_stark.py:139-150)
         assert len(processor_matrix) + len(self.program) == len(instruction_matrix)
@@ -1286,6 +1304,9 @@ class BrainfuckStark:
             blake2b_launches=B.LAUNCHES - launches0[0],
             subntt_launches=kn.LAUNCHES_SUBNTT - launches0[1],
             twiddle_outer_launches=kn.LAUNCHES_TWIDDLE - launches0[2],
+            gl_elementwise_launches=fk.LAUNCHES_ELEMENTWISE - launches0[3],
+            xf_elementwise_launches=fk.LAUNCHES_XFIELD - launches0[4],
+            acc_group_launches=fk.LAUNCHES_ACC - launches0[5],
         )
         return proof
 

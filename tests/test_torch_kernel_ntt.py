@@ -294,13 +294,13 @@ M64, M32 = (1 << 64) - 1, (1 << 32) - 1
 
 
 def _c_sub(a, b):
-    """csrc/ntt.cu `gl_sub` on Python ints with u64 wrap-around."""
+    """csrc/goldilocks.cuh `gl_sub` on Python ints with u64 wrap-around."""
     d = (a - b) & M64
     return (d - M32) & M64 if a < b else d
 
 
 def _c_reduce128(lo, hi):
-    """csrc/ntt.cu `reduce128`."""
+    """csrc/goldilocks.cuh `reduce128`."""
     t0 = _c_sub(lo, hi >> 32)
     hl = hi & M32
     t1 = ((hl << 32) - hl) & M64
