@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
-                          [--stream-log2-cycles K] [--ref-codec]
-                          [--mesh [RANKS]]
+                          [--stream-log2-cycles K] [--field-kernels]
+                          [--ref-codec] [--mesh [RANKS]]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
 line each; any failure raises and exits non-zero:
@@ -35,9 +35,14 @@ line each; any failure raises and exits non-zero:
      twiddle broadcast and on every pair of edge words; F2 (F_p^3 mul,
      mul_base) on (2^21, 3) codewords, contiguous and in the extension
      LDE's strided column layout, and on every pair of edge elements; F3
-     (`_acc_group`) on the base (16 terms), extension (9) and largest
-     quotient (21) groups at N = 2^21, a streamed class's extension group
-     (S = 2^17) and a group of edge weights, ratios and starts;
+     (`_acc_group`) on all eight groups of the prove (base 16 terms,
+     extension 9, each table's quotients, the 2 permutation quotients) as
+     the resident prove hands them over at N = 2^21 (the LDE's column
+     views, no concatenation) and as a streamed class does at S = 2^17 and
+     S = 2^21, at ragged n (2^17 + 37, 1,000), with one term, and on a
+     group of edge weights, ratios and starts; each also at every term
+     split, with the card's launch plan (blocks an SM holds, registers),
+     which must equal `field_kernels.acc_geometry`;
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
      give the same bytes, and both must verify; the same again with
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
@@ -105,6 +110,7 @@ line each; any failure raises and exits non-zero:
   10. the card's name and power limit, then the kernels line;
   11. last line: {"ok": true, "device": {...}}.
 
+`--field-kernels` runs only the field_kernels phase after the build.
 `--ref-codec` runs step 5 and then only step 8, and stops before the
 kernels line. `--mesh [RANKS]` leaves out the kernel checks of steps 3 and
 4 and all of steps 7 and 8, runs mesh_prove on RANKS ranks (2 by default) and stops before the
@@ -210,10 +216,28 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# SASS opcode families: the 64-bit multiply's IMAD forms, the integer adds,
+# logic and shifts, moves, loads and stores; the rest is "other"
+SASS_FAMILIES = (("IMAD.WIDE", ("IMAD.WIDE",)), ("IMAD.HI", ("IMAD.HI",)),
+                 ("IMAD.MOV", ("IMAD.MOV",)), ("IMAD", ("IMAD",)),
+                 ("IADD3", ("IADD3",)), ("LOP3/SHF", ("LOP3", "SHF")),
+                 ("ISETP/SEL", ("ISETP", "SEL")), ("MOV", ("MOV",)),
+                 ("loads", ("LDG", "LDS", "LDC", "LD", "ULDC")),
+                 ("stores", ("STG", "STS", "ST")))
+
+
+def sass_family(opcode: str) -> str:
+    for family, prefixes in SASS_FAMILIES:
+        if any(opcode == p or opcode.startswith(p + ".") for p in prefixes):
+            return family
+    return "other"
+
+
 def sass_counts(library: str):
     """{kernel: {"total": SASS instructions in its code, "opcodes": the
-    eight most frequent base opcodes and their counts}} of a built library,
-    read from `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    eight most frequent base opcodes and their counts, "families": the
+    count of each of SASS_FAMILIES}} of a built library, read from
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
     import collections
     import re
     import shutil
@@ -228,12 +252,14 @@ def sass_counts(library: str):
         name = chunk.split("\n", 1)[0].strip()
         short = next((k for k in ("blake2b_words_kernel", "subntt_kernel",
                                   "twiddle_outer_kernel") if k in name), name)
-        opcodes = collections.Counter(
-            op.split(".")[0] for op in re.findall(
-                r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                chunk, flags=re.M))
+        full = re.findall(
+            r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            chunk, flags=re.M)
+        opcodes = collections.Counter(op.split(".")[0] for op in full)
         counts[short] = {"total": sum(opcodes.values()),
-                         "opcodes": dict(opcodes.most_common(8))}
+                         "opcodes": dict(opcodes.most_common(8)),
+                         "families": dict(collections.Counter(
+                             sass_family(op) for op in full))}
     return counts
 
 
@@ -561,30 +587,75 @@ FIELD_EDGES = (0, 1, 0xFFFFFFFF00000000, 2**32 - 1, 2**32, 2**32 + 1,
                2**63 % 0xFFFFFFFF00000001, 0xFFFFFFFEFFFFFFFF)
 F1_EDGES = FIELD_EDGES + (0xFFFFFFFF00000001, 0xFFFFFFFF00000002, 2**64 - 1)
 # 32-bit instructions an element of the F_p^3 multiply: 9 multiplies, 6
-# adds, 2 subs (`xf_mul`); of a term of F3 at one position, base and
-# extension: x·step, w_shift·x (3 multiplies), + w_plain (3 adds), the
-# product with the stack word (3 multiplies, or an F_p^3 multiply), and the
-# sum (3 adds); and the 3 adds into acc a position a launch
+# adds, 2 subs (`xf_mul`)
 XF_MUL_OPS = 9 * GL_MUL_OPS + 6 * GL_ADD_OPS + 2 * GL_SUB_OPS
-ACC_TERM_OPS = {False: 7 * GL_MUL_OPS + 6 * GL_ADD_OPS,
-                True: 4 * GL_MUL_OPS + 6 * GL_ADD_OPS + XF_MUL_OPS}
+# F3, counted on the schedule of csrc/field.cu (fewer than the 7 multiplies
+# and 6 adds a base term, 13 and 14 an extension term, counted before its
+# redesign, which was therefore no lower bound). A term at one position,
+# extension: its coefficient w_shift·start·r^tile0 · r^j + w_plain (3
+# multiplies, 3 adds), y's multiplication matrix (y0 + y2, y1 - y2 and two
+# negations, 2 each) and 9 products; base: r^j·y (1 multiply) and 6
+# products, w_shift·start·r^tile0·(r^j y) and w_plain·y. A product summed
+# unreduced is 4 wide multiply-adds of its 32-bit halves into the even and
+# odd sums (the add comes with the multiply) and 3 carry adds. A position,
+# once a launch: each of the 3 sums' reduction (two 128-bit ones, 10 each,
+# two subs of a top word and their add) and the 3 adds into acc
+ACC_MAC_OPS = 4 + 3
+ACC_REDUCE_OPS = 2 * 10 + 2 * GL_SUB_OPS + GL_ADD_OPS
+ACC_TERM_OPS = {False: GL_MUL_OPS + 6 * ACC_MAC_OPS,
+                True: 3 * GL_MUL_OPS + 3 * GL_ADD_OPS + GL_ADD_OPS
+                + GL_SUB_OPS + 2 * 2 + 9 * ACC_MAC_OPS}
+ACC_POSITION_OPS = 3 * ACC_REDUCE_OPS + 3 * GL_ADD_OPS
+# F3 before its redesign, at the shapes PERF.md holds its times for
+# (NVIDIA H100 80GB HBM3, 700.00 W; `graph_ms`): {group: ms}
+F3_BASELINE_MS = {"quotients": 1.2709, "base": 0.5817, "ext": 0.5554,
+                  "streamed ext": 0.0891}
 # the u64 network's stage whose twiddle broadcast F1 is timed at: blocks of
 # 2^11 words, the odd half times tw[None, None, :]
 F1_TWIDDLE_LOG2_BLOCK = 11
 
 
-def acc_groups():
-    """{group: (terms, extension stack?)} of the prove's `_acc_group`
-    calls: the base columns, the extension columns and the largest table's
-    quotients (the counts do not depend on the program or the
-    challenges)."""
+def acc_tables():
+    """[(base columns, extension columns, quotients, rows > 0)] of each
+    table of the prove, from a stark of "++++" (whose input and output
+    tables are empty, as the counter's are); the counts do not depend on
+    the program or the challenges."""
     bfs, _ = make_stark("++++", 0, "cpu")
     one = [(1, 0, 0)]
-    quotients = [len(t.all_quotient_degree_bounds(one * 11, one * 5))
-                 for t in bfs.tables]
-    return {"base": (sum(t.base_width for t in bfs.tables), False),
-            "ext": (sum(t.num_ext_columns for t in bfs.tables), True),
-            "quotients": (max(quotients), True)}
+    return [(t.base_width, t.num_ext_columns,
+             len(t.all_quotient_degree_bounds(one * 11, one * 5)),
+             t.height > 0) for t in bfs.tables]
+
+
+def acc_stacks(tables, n, seed, streamed):
+    """The prove's eight F3 groups at n positions, in the layouts the
+    prover hands them over: {group: (parts, extension?)}. Resident, the
+    base group is one row slice of the base LDE block (3 randomizer rows,
+    then the columns) a table and the extension group one `movedim` view
+    of the extension LDE's rows a table, an empty table's columns a
+    zero-stride view; a streamed class the same groups as one view each of
+    `block_values`' rows; each table's quotients and the two permutation
+    quotients a contiguous (T, n, 3) stack."""
+    num_base = sum(t[0] for t in tables)
+    num_ext = sum(t[1] for t in tables)
+    block = random_field(3 + num_base, n, seed)
+    rows = random_field(3 * num_ext, n, seed + 1).view(num_ext, 3, n)
+    if streamed:
+        base, ext = [block[3:]], [rows.movedim(1, -1)]
+    else:
+        base, ext, b0, e0 = [], [], 3, 0
+        for width, n_ext, _, filled in tables:
+            base.append(block[b0:b0 + width])
+            ext.append(rows[e0:e0 + n_ext].movedim(1, -1) if filled else
+                       block.new_zeros(()).expand(n_ext, n, 3))
+            b0, e0 = b0 + width, e0 + n_ext
+    groups = {"base": (base, False), "ext": (ext, True)}
+    for i, (_, _, quotients, _) in enumerate(tables):
+        stack = random_field(quotients * n, 3, seed + 2 + i)
+        groups[f"quotients {i}"] = ([stack.view(quotients, n, 3)], True)
+    groups["permutation"] = ([random_field(2 * n, 3, seed + 9).view(2, n, 3)],
+                             True)
+    return groups
 
 
 def edge_words(words):
@@ -594,19 +665,19 @@ def edge_words(words):
 
 
 def field_case(kernel, run, run_plain, nbytes, ops, timed=None, reps=20,
-               **at):
+               time_plain=True, **at):
     """One shape of F1, F2 or F3: the kernel, launched once and counted,
     against its plain version on the same card tensors, exactly. Times of
     `timed` (the kernel alone, `run` by default) and of the plain version:
     ms and plain_ms their device time a call (`graph_ms`, cold L2),
     call_ms and plain_call_ms CUDA events around one call from the host
     (the host's share included, as a caller sees it); and the bound of the
-    work."""
+    work. F3's launch comes with one of its power tables."""
     reset_counts()
     got = run()
     counts = read_counts()
-    assert counts == {**{k: 0 for k in counts}, kernel: 1}, (kernel, at,
-                                                             counts)
+    want = {kernel: 1, **({"f3_powers": 1} if kernel == "f3" else {})}
+    assert counts == {**{k: 0 for k in counts}, **want}, (kernel, at, counts)
     want = run_plain()
     torch.cuda.synchronize()
     assert got.shape == want.shape, (kernel, at, got.shape, want.shape)
@@ -616,9 +687,9 @@ def field_case(kernel, run, run_plain, nbytes, ops, timed=None, reps=20,
     bound_ms, bound_by = bound(nbytes, ops)
     row = {"kernel": kernel, **at, "max_abs_err": err,
            "ms": graph_ms(timed or run),
-           "plain_ms": graph_ms(run_plain, calls=1),
+           "plain_ms": graph_ms(run_plain, calls=1) if time_plain else None,
            "call_ms": cuda_ms(timed or run, reps=reps),
-           "plain_call_ms": cuda_ms(run_plain, reps=3),
+           "plain_call_ms": cuda_ms(run_plain, reps=3) if time_plain else None,
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit("field_kernels", **row)
     return row
@@ -630,11 +701,11 @@ def field_kernels():
     sub and mul of two 2^21-word codewords, the u64 network's twiddle
     broadcast, every pair of edge words. F2: mul of (2^21, 3) extension
     codewords, contiguous and in the strided layout of the extension LDE's
-    columns (`movedim`), mul_base, every pair of edge elements. F3: one
-    `_acc_group` call each for the base, extension and largest quotient
-    group at N = 2^21, a streamed class's extension group (S = 2^17, the
-    class's strided stack) and a group of edge weights, ratios and starts.
-    Returns {kernel: [rows]}."""
+    columns (`movedim`), mul_base, every pair of edge elements. F3
+    (`f3_case`): every group of the prove (`acc_stacks`) resident at N =
+    2^21 and as a streamed class at S = 2^17 and 2^21, ragged n, one term,
+    and a group of edge weights, ratios and starts. Returns {kernel:
+    [rows]}."""
     from stark_brainfuck_tpu_torch.ops import field as F
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import xfield as X
@@ -696,57 +767,110 @@ def field_kernels():
     del x3, pa, pb, pw
 
     stark = BrainfuckStark.__new__(BrainfuckStark)  # `_acc_group` reads no state
-    cases = [(group, terms, ext, n, "resident")
-             for group, (terms, ext) in acc_groups().items()]
-    cases.append(("ext", cases[1][1], True, STREAM_S, "streamed class"))
+    tables = acc_tables()
+    sizes = [(n, "resident", False), (STREAM_S, "streamed class", True),
+             (n, "streamed class", True)]
+    # the groups timed before F3's redesign: resident base, ext and the
+    # largest quotient group, and a streamed class's ext group at S = 2^17
+    big = max(range(len(tables)), key=lambda i: tables[i][2])
+    baseline = {("resident", "base"): "base", ("resident", "ext"): "ext",
+           ("resident", f"quotients {big}"): "quotients",
+           ("streamed class", "ext", STREAM_S): "streamed ext"}
     seed = 320
-    for group, terms, ext, length, form in cases:
+    for length, form, streamed in sizes:
+        groups = acc_stacks(tables, length, seed, streamed)
+        for group, (parts, ext) in groups.items():
+            seed += 10
+            key = (baseline.get((form, group))
+                   or baseline.get((form, group, length)))
+            rows["f3"].append(f3_case(
+                stark, parts, ext, length, seed, time_plain=key is not None,
+                group=group, form=form, baseline_shape=key,
+                baseline_ms=F3_BASELINE_MS.get(key)))
+        del groups
+    # ragged n, one term, and edge weights, ratios (0, 1, p - 1 among them)
+    # and starts
+    for length, terms, ext in (((1 << 17) + 37, 9, True), (1000, 16, False),
+                               (1000, 21, True), (n, 1, False),
+                               (STREAM_S, 1, True)):
         seed += 10
-        acc = random_field(length, 3, seed)
-        if form == "streamed class":
-            # block_values' (T, 3, S) rows seen as (T, S, 3)
-            stack = random_field(terms * 3, length, seed + 1).view(
-                terms, 3, length).movedim(1, -1)
-        elif ext:
-            stack = random_field(terms * length, 3, seed + 1).view(
-                terms, length, 3)
-        else:
-            stack = random_field(terms, length, seed + 1)
-        w = random_field(terms * 2, 3, seed + 2).view(terms, 2, 3)
-        ratios, starts = random_field(2, terms, seed + 3)
-        scratch = acc.clone()
-        term_ops = ACC_TERM_OPS[ext] * terms + 3 * GL_ADD_OPS
-        rows["f3"].append(field_case(
-            "f3",
-            lambda: stark._acc_group(acc.clone(), stack, w, ratios, starts,
-                                     length=length),
-            lambda: stark._acc_group_plain(acc, stack, w, ratios, starts,
-                                           length=length),
-            stack.numel() * 8 + 48 * length + 64 * terms,
-            term_ops * length,
-            timed=lambda: FK.acc_group(scratch, stack, w, ratios, starts,
-                                       length),
-            group=group, terms=terms, n=length, stack=list(stack.shape),
-            form=form))
-        del acc, stack, scratch
-    # edge weights, ratios (0, 1, p - 1 among them) and starts
+        stack = (random_field(terms * length, 3, seed).view(terms, length, 3)
+                 if ext else random_field(terms, length, seed))
+        rows["f3"].append(f3_case(
+            stark, [stack], ext, length, seed, time_plain=False,
+            group=f"{terms} terms", form="ragged n" if length % 256 else
+            "one term"))
+        del stack
     terms = len(FIELD_EDGES)
     e = edge_words(FIELD_EDGES)
-    acc = random_field(4096, 3, 400)
     stack = random_field(terms * 4096, 3, 401).view(terms, 4096, 3)
     w = torch.stack([e.roll(k) for k in range(6)], dim=-1).view(terms, 2, 3)
-    ratios, starts = e, e.roll(3)
-    rows["f3"].append(field_case(
-        "f3",
-        lambda: stark._acc_group(acc.clone(), stack, w, ratios, starts,
-                                 length=4096),
-        lambda: stark._acc_group_plain(acc, stack, w, ratios, starts,
-                                       length=4096),
-        stack.numel() * 8 + 48 * 4096 + 64 * terms,
-        (ACC_TERM_OPS[True] * terms + 3 * GL_ADD_OPS) * 4096, reps=5,
-        group="edges", terms=terms, n=4096, stack=list(stack.shape),
+    rows["f3"].append(f3_case(
+        stark, [stack], True, 4096, 400, time_plain=False,
+        weights=(w, e, e.roll(3)), group="edges",
         form="edge weights, ratios and starts"))
     return rows
+
+
+def f3_case(stark, parts, ext, length, seed, time_plain, weights=None,
+            **at):
+    """F3 on one group (`parts`, the group's terms where they lie) at
+    `length` positions through `_acc_group`, launched once and counted,
+    against `_acc_group_plain` on the concatenated stack, exactly; then at
+    every term split the plan allows, each held to the same result and
+    timed (`graph_ms`). The row: the field_case times (the plain version's
+    only where `time_plain`), the card's plan (`acc_plan`: groups,
+    positions and blocks, blocks an SM holds, registers), which must equal
+    `acc_geometry`'s rule for the card's slots, and the bound: each stack
+    word read once (a zero-stride part reads none), acc read and written,
+    the tables written and read, and the operations of ACC_TERM_OPS and
+    ACC_POSITION_OPS."""
+    from stark_brainfuck_tpu_torch.ops import field_kernels as FK
+
+    terms = sum(int(q.shape[0]) for q in parts)
+    acc = random_field(length, 3, seed)
+    if weights is None:
+        w = random_field(terms * 2, 3, seed + 2).view(terms, 2, 3)
+        # 0, 1 and p - 1 among the first ratios
+        words = random_field(1, 2 * terms + 2, seed + 3)[0]
+        ratios, starts = words[:terms], words[terms:2 * terms]
+    else:
+        w, ratios, starts = weights
+    stack = torch.cat([q.contiguous() for q in parts], dim=0)
+    scratch = acc.clone()
+    plan = FK.acc_plan(ext, terms, length)
+    slots = plan["sms"] * plan["blocks_per_sm"]
+    assert FK.acc_geometry(terms, length, slots) == (
+        plan["log_groups"], plan["positions_per_block"], plan["blocks"]), plan
+    read = sum(q.numel() * 8 for q in parts if q.stride()[0])
+    table = 8 * terms * FK.acc_table_words(length)
+    want = stark._acc_group_plain(acc, stack, w, ratios, starts,
+                                  length=length)
+    by_split = {}
+    for lg in range(FK.ACC_LOG_MAX_GROUPS + 1):
+        if 1 << lg > terms:
+            break
+        got = FK.acc_group(acc.clone(), parts, w, ratios, starts, length, lg)
+        assert torch.equal(got, want), f"F3 differs at split {lg}, {at}"
+        by_split[1 << lg] = graph_ms(lambda lg=lg: FK.acc_group(
+            scratch, parts, w, ratios, starts, length, lg))
+        del got
+    del want
+    row = field_case(
+        "f3",
+        lambda: stark._acc_group(acc.clone(), parts, w, ratios, starts,
+                                 length=length),
+        (lambda: stark._acc_group_plain(acc, stack, w, ratios, starts,
+                                        length=length)),
+        read + 48 * length + 2 * table + 64 * terms,
+        (ACC_TERM_OPS[ext] * terms + ACC_POSITION_OPS) * length,
+        timed=lambda: FK.acc_group(scratch, parts, w, ratios, starts, length),
+        time_plain=time_plain, terms=terms, n=length, ext=ext,
+        parts=[list(q.shape) for q in parts],
+        strides=[list(q.stride()) for q in parts], plan=plan,
+        ms_by_groups=by_split, **at)
+    del acc, stack, scratch
+    return row
 
 
 def b2_sweep():
@@ -1012,14 +1136,17 @@ def profile_prove(bfs, args, out_dir):
     field_s = {name: sum(e.self_device_time_total for e in events
                          if name in e.key) / 1e6
                for name in ("gl_binary_kernel", "xf_binary_kernel",
-                            "acc_group_kernel")}
+                            "acc_group_kernel", "acc_powers_kernel")}
+    # the copies of torch.cat (CatArrayBatchedCopy kernels)
+    cat_s = sum(e.self_device_time_total for e in events
+                if "CatArray" in e.key) / 1e6
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_prove.txt"), "w") as fh:
         fh.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
     emit("profile", wall_s=wall, device_busy_s=device_s,
          device_busy_share=device_s / wall, b1_device_s=b1_s,
-         field_kernels_device_s=field_s,
+         field_kernels_device_s=field_s, cat_copies_device_s=cat_s,
          top=[{"kernel": e.key[:80], "calls": e.count,
                "device_s": e.self_device_time_total / 1e6}
               for e in events[:12]])
@@ -1045,23 +1172,49 @@ def reset_counts():
     FK.LAUNCHES_ELEMENTWISE = 0
     FK.LAUNCHES_XFIELD = 0
     FK.LAUNCHES_ACC = 0
+    FK.LAUNCHES_ACC_POWERS = 0
 
 
 def read_counts():
-    """Launches of B1, B2, B3 and F1, F2, F3 since the last
-    reset_counts()."""
+    """Launches of B1, B2, B3 and F1, F2, F3 (and F3's power tables) since
+    the last reset_counts()."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
 
     return {"b1": B.LAUNCHES, "b2": K.LAUNCHES_SUBNTT,
             "b3": K.LAUNCHES_TWIDDLE, "f1": FK.LAUNCHES_ELEMENTWISE,
-            "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC}
+            "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC,
+            "f3_powers": FK.LAUNCHES_ACC_POWERS}
 
 
 def b_counts(counts):
     """The B1, B2 and B3 launches of a read_counts() dict."""
     return {k: counts[k] for k in ("b1", "b2", "b3")}
+
+
+# stage_c of the proves before F3's redesign (PERF.md; NVIDIA H100 80GB
+# HBM3, 700.00 W): the 2^15-cycle resident prove (two timed proves) and
+# the 2^16-cycle streamed one, {(classes, NTT backend): s} (1 = resident),
+# with F3's launches, for each prove's line to stand beside
+STAGE_C = "stage_c (quotients+combination)"
+BASELINE_FULL_PROVE = {"f3_launches": 8, "stage_c_s": [0.0427, 0.0574],
+                       "peak_bytes_at_stage_c": 4553993728}
+BASELINE_STREAM = {(1, "auto"): (0.097, 8), (32, "auto"): (1.320, 256),
+                   (32, "mxu"): (1.639, 256), (2, "auto"): (0.232, 16),
+                   (2, "mxu"): (0.164, 16)}
+
+
+def stage_c(bfs, counts):
+    """A prove's F3 launches (and its power tables'), stage_c seconds and
+    peak device bytes at stage_c's mark."""
+    m = bfs.last_metrics
+    assert counts["f3_powers"] == counts["f3"], counts
+    return {"f3_launches": counts["f3"],
+            "f3_power_launches": counts["f3_powers"],
+            "stage_c_s": m["stages_s"].get(STAGE_C),
+            "peak_bytes_at_stage_c": m.get("peak_bytes_at_mark", {}).get(
+                STAGE_C)}
 
 
 def full_proves(src, smi):
@@ -1101,7 +1254,7 @@ def full_proves(src, smi):
         assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (
             f"{phase}: a field kernel was not launched: {counts}")
         runs[phase].append({
-            "prove_s": wall, "launches": counts,
+            "prove_s": wall, "launches": counts, **stage_c(bfs, counts),
             "stages_s": bfs.last_metrics["stages_s"],
             "fri_round_s": bfs.last_metrics["fri_round_s"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1117,7 +1270,7 @@ def full_proves(src, smi):
              prove_s=[r["prove_s"] for r in rs], warmup_prove_s=warm[phase],
              ntt_path=bfs.last_metrics["ntt_path"], proof_bytes=len(proof),
              verified=True, identical_to_default=True, runs=rs,
-             nvidia_smi=smi)
+             baseline=BASELINE_FULL_PROVE, nvidia_smi=smi)
     return (starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()},
             proof)
 
@@ -1371,7 +1524,11 @@ def stream_proves(log2_cycles, smi, plans):
                "block": m["stream_block"], "trace_cycles": cycles,
                "fri_domain": m["fri_domain"], "prove_s": wall,
                "cycles_per_s": cycles / wall, "launches": counts,
-               "stages_s": m["stages_s"],
+               "stages_s": m["stages_s"], **stage_c(bfs, counts),
+               "baseline_stage_c_s_and_f3_launches": BASELINE_STREAM.get(
+                   (m["stream_classes"] if kind != "resident" else 1,
+                    config.get("ntt_backend", "auto")))
+               if log2_cycles == STREAM_LOG2_CYCLES else None,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "peak_bytes_at_mark": m["peak_bytes_at_mark"], **rates(bfs),
                "proof_bytes": len(got), "identical": True,
@@ -1892,7 +2049,7 @@ def mesh_prove(src, want: bytes, smi, world=2):
 
 def kernel_entry(name, source, replaces, launches, launches_streamed,
                  launches_mesh, launches_ref, rows, main, at, no_library,
-                 replaces_note=None):
+                 replaces_note=None, extra=None):
     """One row of the kernels line: ms, plain_ms and bound at the main
     shape `rows[main]`, the largest error over every checked shape;
     `launches` of the resident full-size prove, `launches_streamed` of the
@@ -1918,6 +2075,7 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
         "library_ms": None,
         "library_ms_null_because": no_library,
         "at": {k: main_shape[k] for k in at},
+        **(extra or {}),
     }
 
 
@@ -1949,6 +2107,9 @@ def main():
                     help="after the build, prove a counter of 2^K cycles down "
                          "the streamed path (32 classes, both NTT paths), "
                          "and stop")
+    ap.add_argument("--field-kernels", action="store_true",
+                    help="after the build, run the field_kernels phase "
+                         "(F1, F2, F3 against their plain versions) and stop")
     ap.add_argument("--ref-codec", action="store_true",
                     help="after the build, run step 5 and the phases of the "
                          "reference codec, the DEBUG degree checks and the "
@@ -1993,6 +2154,10 @@ def main():
     assert {"blake2b", "ntt"} <= set(libs), libs
     assert {"hashing", "vm"} <= set(host_libs), host_libs
 
+    if opts.field_kernels:
+        field_kernels()
+        print(smi, flush=True)
+        return
     if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
         if opts.b2_sweep:
             b2_sweep()
@@ -2117,13 +2282,15 @@ def main():
             ("f3", "acc_group", "stark_brainfuck_tpu/protocol/stark.py:765",
              "BrainfuckStark._acc_group:765",
              next(i for i, r in enumerate(f_rows["f3"])
-                  if r["group"] == "quotients"),
+                  if r.get("baseline_shape") == "quotients"),
              ("group", "terms", "n", "form"))):
         kernels.append(kernel_entry(
             name, field_src, replaces, full[key], streamed[key],
             mesh_counts[key], ref_counts[key], f_rows[key], main, at,
             "no PyTorch call computes a mod-p multiply",
-            replaces_note=f"no pl.pallas_call: the XLA-fused form of {what}"))
+            replaces_note=f"no pl.pallas_call: the XLA-fused form of {what}",
+            extra={"launches_power_tables": full["f3_powers"]}
+            if key == "f3" else None))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

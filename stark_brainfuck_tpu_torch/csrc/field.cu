@@ -37,20 +37,48 @@
 // three coefficients wherever they lie and writes them together.
 //
 // F3 design. acc[i] += sum_t (w_plain_t + w_shift_t * start_t * ratio_t^i)
-// * stack[t, i] over a group of T terms, i in [0, n): stack (T, n) base or
-// (T, n, 3) extension words at any strides, acc (n, 3) contiguous, updated
-// in place. What bounds it: on paper both, about equally. A base term
-// costs 7 multiplies and 6 adds an element, an extension term 13 and 14,
-// against 8 or 24 bytes of stack; acc is read and written once a launch.
-// So the kernel reads each stack word once, never writes a temporary, and
-// generates x^s = start * ratio^i itself: a block owns kAccRun runs of
-// kAccThreads consecutive positions, thread j the positions
-// tile + j + k * kAccThreads (neighbouring threads on neighbouring words),
-// with the T sums of its kAccRun positions in registers. For each term it
-// raises ratio to its first position by square and multiply, its own bits
-// (kAccLogThreads of them, whose last square is the step ratio^kAccThreads)
-// and then the block's, and steps by one multiply a position. A field sum
-// is exact, so the order over terms does not change a bit of the result.
+// * stack[t, i] over a group of T terms, i in [0, n): each term's column a
+// base (n,) or extension (n, 3) run of words wherever it lies (a pointer
+// and the strides of its position and coefficient axes, so an LDE's
+// columns are read in place and a group needs no concatenation), acc
+// (n, 3) contiguous, updated in place. What bounds it on this card: the
+// 64-bit multiplies as much as the bytes. An extension term at one
+// position is 24 bytes of stack against 12 products of 64-bit words
+// (IMAD-family instructions, which issue on half the SM's lanes), a base
+// term 8 bytes against 7; and a grid of one fixed tile leaves most of the
+// card idle at a streamed class or a small domain. The design:
+//   - powers off the chain: a first launch (acc_powers_kernel, one block a
+//     term) writes for each term the tables r^j (j < kAccTile), r^(kAccTile
+//     m) (m < kAccMid) and start * r^(kAccTile kAccMid h) (h < n / that),
+//     each entry one multiply of an earlier entry by a square of r, in
+//     rounds that double the filled prefix. A block of the main launch
+//     makes w_shift * start * r^(its first position) once a term (two
+//     table words, four multiplies, in shared memory), and position i's
+//     x^s factor is one table load r^(i mod kAccTile): no thread raises r
+//     by square and multiply, no position waits on another's power;
+//   - w_shift folded into the block's start, so an extension term's
+//     coefficient w_plain + w_shift x^s is 3 multiplies, not 4; a base
+//     term's (w_plain + w_shift x^s) y is w_shift (x^s y) + w_plain y, one
+//     multiply and 6 products;
+//   - lazy reduction: each position's 128-bit products (6 a base term, 9
+//     an extension term, which multiplies c by y's 3 x 3 multiplication
+//     matrix, X^3 = X - 1 folded into y's entries) are summed over the
+//     group's terms unreduced, one sum per coefficient of the result, and
+//     reduced once at the end with 2^128 == -2^32 (mod p). A sum keeps the
+//     even and the odd 32 x 32 partial products apart (Sum160), so that
+//     each multiply-add lands on a 64-bit register pair: a product and its
+//     add are 4 wide multiply-adds and 3 carry adds;
+//   - a grid for every n: a block is kAccThreads threads, split into G
+//     term groups (1, 2, 4, 8) of kAccThreads / G consecutive positions,
+//     group g taking terms g, g + G, ...; the groups' sums meet once in
+//     shared memory. acc_group_plan picks G from n, T and the kernel's
+//     occupancy on this card: the G whose waves of blocks and share of
+//     terms a group leave the fewest idle slots (G = 1 wherever the blocks
+//     fill the card, a streamed class of 2^17 included; 8 at a domain of
+//     2^14). A thread keeps at most 64 registers, so that an SM holds 4
+//     blocks (32 warps).
+// Field sums are exact, so neither the term split nor the lazy sums change
+// a bit of the result.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,10 +90,21 @@ namespace {
 constexpr int kMaxDims = 6;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;
-constexpr int kAccLogThreads = 7;
+// F3: threads a block, the most term groups a block and terms a launch,
+// the power tables' split of a position i = (kAccMid h + m) kAccTile + j,
+// the gain a larger term split must bring (acc_group_plan), and the blocks
+// an SM must hold (the register cap of acc_group_kernel)
+constexpr int kAccLogThreads = 8;
 constexpr int kAccThreads = 1 << kAccLogThreads;
-constexpr int kAccLogRun = 3;
-constexpr int kAccRun = 1 << kAccLogRun;
+constexpr int kAccLogMaxGroups = 3;
+constexpr int kAccMaxTerms = 64;
+constexpr int kAccLogTile = 8;
+constexpr int kAccTile = 1 << kAccLogTile;
+constexpr int kAccLogMid = 6;
+constexpr int kAccMid = 1 << kAccLogMid;
+constexpr int kAccLogTop = kAccLogTile + kAccLogMid;
+constexpr double kAccSplitGain = 1.05;
+constexpr int kAccBlocksPerSm = 4;
 
 enum Op { kAdd = 0, kSub = 1, kMul = 2, kXMul = 3, kXMulBase = 4 };
 
@@ -169,74 +208,217 @@ xf_binary_kernel(int op, const uint64_t* __restrict__ a,
   }
 }
 
-struct AccArgs {
-  uint64_t* acc;           // (n, 3), contiguous
-  const uint64_t* stack;   // (T, n) or (T, n, 3) at strides ts, is, cs
-  const uint64_t* w;       // (T, 2, 3): w_plain, w_shift
-  const uint64_t* ratios;  // (T,)
-  const uint64_t* starts;  // (T,)
-  long long terms, n, ts, is, cs;
+// One term of an F3 launch: its column's first word and the strides, in
+// words, of its position and coefficient axes (cs unused for a base term).
+struct AccTerm {
+  const uint64_t* ptr;
+  long long is, cs;
 };
 
+struct AccArgs {
+  uint64_t* acc;            // (n, 3), contiguous
+  const uint64_t* w;        // (T, 2, 3): w_plain, w_shift
+  const uint64_t* tables;   // (T, row): acc_powers_kernel's
+  long long terms, n, row;
+  int log_groups;
+  AccTerm term[kAccMaxTerms];
+};
+
+// an unreduced sum of 128-bit products a b (a = a0 + a1 2^32, b likewise),
+// kept by the weight of their 32 x 32 partial products so that every
+// multiply-add lands on a 64-bit register pair: the even sum e0 + e1 2^64
+// + e2 2^128 of a0 b0 + a1 b1 2^64, the odd sum o + o2 2^64 of a0 b1 +
+// a1 b0; the sum is even + odd 2^32
+struct Sum160 {
+  uint64_t e0, e1, o;
+  uint32_t e2, o2;
+};
+
+// s += a * b: four multiply-adds of 32 x 32 words into 64-bit pairs, each
+// with its carry out (the compiler makes each low and high pair one wide
+// multiply-add), and three carry adds
+__device__ __forceinline__ void mac(Sum160& s, uint64_t a, uint64_t b) {
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, x0, x1, x2, x3, y0, y1;\n\t"
+      "mov.b64 {a0, a1}, %5;\n\t"
+      "mov.b64 {b0, b1}, %6;\n\t"
+      "mov.b64 {x0, x1}, %0;\n\t"
+      "mov.b64 {x2, x3}, %1;\n\t"
+      "mov.b64 {y0, y1}, %3;\n\t"
+      "mad.lo.cc.u32 x0, a0, b0, x0;\n\t"
+      "madc.hi.cc.u32 x1, a0, b0, x1;\n\t"
+      "madc.lo.cc.u32 x2, a1, b1, x2;\n\t"
+      "madc.hi.cc.u32 x3, a1, b1, x3;\n\t"
+      "addc.u32 %2, %2, 0;\n\t"
+      "mad.lo.cc.u32 y0, a0, b1, y0;\n\t"
+      "madc.hi.cc.u32 y1, a0, b1, y1;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 y0, a1, b0, y0;\n\t"
+      "madc.hi.cc.u32 y1, a1, b0, y1;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mov.b64 %0, {x0, x1};\n\t"
+      "mov.b64 %1, {x2, x3};\n\t"
+      "mov.b64 %3, {y0, y1};\n\t"
+      "}"
+      : "+l"(s.e0), "+l"(s.e1), "+r"(s.e2), "+l"(s.o), "+r"(s.o2)
+      : "l"(a), "l"(b));
+}
+
+// s (mod p), canonical: the even sum with 2^128 == -2^32 (e2 2^32 < p
+// while e2 < 2^32 - 1), the odd one times 2^32 as o 2^32 + o2 2^96 with
+// 2^96 == -1 (o2 < p); a launch sums at most 3 kAccMaxTerms products a
+// sum, so e2 and o2 stay below 2^9
+__device__ __forceinline__ uint64_t reduce160(const Sum160& s) {
+  const uint64_t even =
+      gl_sub(reduce128(s.e0, s.e1), (uint64_t)s.e2 << 32);
+  const uint64_t odd = gl_sub(reduce128(s.o << 32, s.o >> 32), s.o2);
+  return gl_add(even, odd);
+}
+
+// a[k] = a[0] * q^k for k < len, a[0] set: rounds of a[s + j] = a[j] *
+// q^s for j < s, s = 1, 2, 4, ...; q becomes q^(2^ceil(log2 len)). Every
+// thread of the block calls it.
+__device__ void fill_powers(uint64_t* a, long long len, uint64_t& q) {
+  for (long long s = 1; s < len; s <<= 1) {
+    __syncthreads();
+    const long long m = len - s < s ? len - s : s;
+    for (long long j = threadIdx.x; j < m; j += blockDim.x)
+      a[s + j] = gl_mul(a[j], q);
+    q = gl_mul(q, q);
+  }
+}
+
+// F3's tables, block t for term t: row t holds r^j (j < kAccTile), then
+// r^(kAccTile m) (m < kAccMid), then start * r^(2^kAccLogTop h) (h < top)
+__global__ void __launch_bounds__(kAccThreads)
+acc_powers_kernel(const uint64_t* __restrict__ ratios,
+                  const uint64_t* __restrict__ starts,
+                  uint64_t* __restrict__ tables, long long row,
+                  long long top) {
+  uint64_t* pw = tables + blockIdx.x * row;
+  uint64_t* mid = pw + kAccTile;
+  uint64_t* hi = mid + kAccMid;
+  if (threadIdx.x == 0) {
+    pw[0] = 1;
+    mid[0] = 1;
+    hi[0] = starts[blockIdx.x];
+  }
+  uint64_t q = ratios[blockIdx.x];
+  fill_powers(pw, kAccTile, q);  // q = r^kAccTile after
+  fill_powers(mid, kAccMid, q);  // q = r^(2^kAccLogTop) after
+  fill_powers(hi, top, q);
+}
+
+// term c's words at position p: y0, or the three coefficients
 template <bool Ext>
-__global__ void __launch_bounds__(kAccThreads) acc_group_kernel(AccArgs A) {
-  const long long tile = (long long)blockIdx.x << (kAccLogThreads + kAccLogRun);
-  const long long p0 = tile + threadIdx.x;
-  uint64_t s[kAccRun][3];
+__device__ __forceinline__ void load_term(const AccTerm& c, long long p,
+                                          uint64_t& y0, uint64_t& y1,
+                                          uint64_t& y2) {
+  const uint64_t* v = c.ptr + p * c.is;
+  y0 = __ldg(v);
+  if constexpr (Ext) {
+    y1 = __ldg(v + c.cs);
+    y2 = __ldg(v + 2 * c.cs);
+  }
+}
+
+template <bool Ext>
+__global__ void __launch_bounds__(kAccThreads, kAccBlocksPerSm)
+acc_group_kernel(const __grid_constant__ AccArgs A) {
+  // per term: w_shift * start * r^tile0 and w_plain; the term's r^j row
+  // from the block's offset in its tile
+  __shared__ uint64_t s_w[kAccMaxTerms][6];
+  __shared__ const uint64_t* s_pw[kAccMaxTerms];
+  __shared__ uint64_t s_red[kAccThreads][3];
+  const int lg = A.log_groups;
+  const int per = kAccThreads >> lg;  // positions a block
+  const int g = threadIdx.x >> (kAccLogThreads - lg);
+  const int j = threadIdx.x & (per - 1);
+  const long long tile0 = (long long)blockIdx.x * per;
+  const long long p = tile0 + j;
+  {
+    const long long h = tile0 >> kAccLogTop;
+    const int m = (int)(tile0 >> kAccLogTile) & (kAccMid - 1);
+    const int off = (int)(tile0 & (kAccTile - 1));
+    for (int t = threadIdx.x; t < A.terms; t += kAccThreads) {
+      const uint64_t* row = A.tables + t * A.row;
+      const uint64_t x0 =
+          gl_mul(row[kAccTile + kAccMid + h], row[kAccTile + m]);
+      const uint64_t* w = A.w + 6 * t;
 #pragma unroll
-  for (int k = 0; k < kAccRun; ++k) s[k][0] = s[k][1] = s[k][2] = 0;
-  for (long long t = 0; t < A.terms; ++t) {
-    // x = start * ratio^p0: the thread's bits, then the block's
-    uint64_t x = A.starts[t], b = A.ratios[t];
-#pragma unroll
-    for (int k = 0; k < kAccLogThreads; ++k) {
-      if ((threadIdx.x >> k) & 1) x = gl_mul(x, b);
-      b = gl_mul(b, b);
-    }
-    const uint64_t step = b;  // ratio^kAccThreads
-#pragma unroll
-    for (int k = 0; k < kAccLogRun; ++k) b = gl_mul(b, b);
-    for (unsigned int e = blockIdx.x; e; e >>= 1) {
-      if (e & 1) x = gl_mul(x, b);
-      if (e > 1) b = gl_mul(b, b);
-    }
-    const uint64_t* w = A.w + 6 * t;
-    const uint64_t wp0 = w[0], wp1 = w[1], wp2 = w[2];
-    const uint64_t ws0 = w[3], ws1 = w[4], ws2 = w[5];
-    const uint64_t* st = A.stack + t * A.ts;
-#pragma unroll
-    for (int k = 0; k < kAccRun; ++k) {
-      const long long p = p0 + k * kAccThreads;
-      if (p < A.n) {
-        const uint64_t c0 = gl_add(gl_mul(ws0, x), wp0);
-        const uint64_t c1 = gl_add(gl_mul(ws1, x), wp1);
-        const uint64_t c2 = gl_add(gl_mul(ws2, x), wp2);
-        const uint64_t* v = st + p * A.is;
-        uint64_t r0, r1, r2;
-        if constexpr (Ext) {
-          xf_mul(c0, c1, c2, v[0], v[A.cs], v[2 * A.cs], r0, r1, r2);
-        } else {
-          const uint64_t y = v[0];
-          r0 = gl_mul(c0, y);
-          r1 = gl_mul(c1, y);
-          r2 = gl_mul(c2, y);
-        }
-        s[k][0] = gl_add(s[k][0], r0);
-        s[k][1] = gl_add(s[k][1], r1);
-        s[k][2] = gl_add(s[k][2], r2);
+      for (int k = 0; k < 3; ++k) {
+        s_w[t][k] = gl_mul(w[3 + k], x0);
+        s_w[t][3 + k] = w[k];
       }
-      if (k + 1 < kAccRun) x = gl_mul(x, step);
+      s_pw[t] = row + off;
     }
   }
-#pragma unroll
-  for (int k = 0; k < kAccRun; ++k) {
-    const long long p = p0 + k * kAccThreads;
-    if (p < A.n) {
-      uint64_t* o = A.acc + 3 * p;
-      o[0] = gl_add(o[0], s[k][0]);
-      o[1] = gl_add(o[1], s[k][1]);
-      o[2] = gl_add(o[2], s[k][2]);
+  __syncthreads();
+  const int G = 1 << lg;
+  // the sums of the product's three coefficients
+  Sum160 s[3] = {};
+  if (p < A.n) {
+    uint64_t v0 = 0, v1 = 0, v2 = 0;
+    if (g < A.terms) load_term<Ext>(A.term[g], p, v0, v1, v2);
+    for (int t = g; t < A.terms; t += G) {
+      const uint64_t y0 = v0, y1 = v1, y2 = v2;
+      // the next term's words in flight while this one multiplies
+      if (t + G < A.terms) load_term<Ext>(A.term[t + G], p, v0, v1, v2);
+      const uint64_t x = __ldg(s_pw[t] + j);
+      if constexpr (Ext) {
+        const uint64_t c0 = gl_add(gl_mul(s_w[t][0], x), s_w[t][3]);
+        const uint64_t c1 = gl_add(gl_mul(s_w[t][1], x), s_w[t][4]);
+        const uint64_t c2 = gl_add(gl_mul(s_w[t][2], x), s_w[t][5]);
+        // c * y with X^3 = X - 1 as y's multiplication matrix times c:
+        // r0 = c0 y0 - c1 y2 - c2 y1, r1 = c0 y1 + c1 (y0 + y2) + c2 (y1 -
+        // y2), r2 = c0 y2 + c1 y1 + c2 (y0 + y2); p - y is p for y = 0,
+        // whose products are 0 (mod p) all the same
+        const uint64_t u = gl_add(y0, y2);
+        mac(s[0], c0, y0);
+        mac(s[0], c1, kP - y2);
+        mac(s[0], c2, kP - y1);
+        mac(s[1], c0, y1);
+        mac(s[1], c1, u);
+        mac(s[1], c2, gl_sub(y1, y2));
+        mac(s[2], c0, y2);
+        mac(s[2], c1, y1);
+        mac(s[2], c2, u);
+      } else {
+        // (w_shift start r^tile0 x + w_plain) y as (w_shift start r^tile0)
+        // (x y) + w_plain y: one reduced multiply and six products, where
+        // the coefficient would take three multiplies and three adds
+        const uint64_t z = gl_mul(x, y0);
+        mac(s[0], s_w[t][0], z);
+        mac(s[0], s_w[t][3], y0);
+        mac(s[1], s_w[t][1], z);
+        mac(s[1], s_w[t][4], y0);
+        mac(s[2], s_w[t][2], z);
+        mac(s[2], s_w[t][5], y0);
+      }
     }
+  }
+  uint64_t r0 = reduce160(s[0]), r1 = reduce160(s[1]), r2 = reduce160(s[2]);
+  if (lg) {
+    if (g) {
+      s_red[threadIdx.x][0] = r0;
+      s_red[threadIdx.x][1] = r1;
+      s_red[threadIdx.x][2] = r2;
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int k = 1; k < G; ++k) {
+        const uint64_t* o = s_red[k * per + j];
+        r0 = gl_add(r0, o[0]);
+        r1 = gl_add(r1, o[1]);
+        r2 = gl_add(r2, o[2]);
+      }
+    }
+  }
+  if (g == 0 && p < A.n) {
+    uint64_t* o = A.acc + 3 * p;
+    o[0] = gl_add(o[0], r0);
+    o[1] = gl_add(o[1], r1);
+    o[2] = gl_add(o[2], r2);
   }
 }
 
@@ -313,35 +495,110 @@ extern "C" int xf_binary_launch(int op, const void* a, const void* b,
                        total, L, stream);
 }
 
+// F3's launch plan, as acc_group_launch makes it: out[0] log2 of the term
+// groups a block, out[1] positions a block, out[2] blocks, out[3] blocks
+// an SM holds, out[4] SMs, out[5] registers a thread. `log_groups` >= 0
+// forces the split (at most log2 of min(T, 8)), -1 leaves it to the rule:
+// of G = 1, 2, 4, 8 (G <= T), the one that keeps most of the card's block
+// slots busy, blocks / (waves * slots) * T / (G * ceil(T / G)) with slots =
+// SMs * blocks an SM holds and waves = ceil(blocks / slots), where a
+// larger G must beat the best smaller one by kAccSplitGain: every block
+// repeats the terms' starts and its groups meet in shared memory, so a
+// split that only trims the last wave of many does not pay.
+extern "C" int acc_group_plan(int ext, long long terms, long long n,
+                              int log_groups, long long* out) {
+  static int sms = 0, occupancy[2] = {0, 0}, regs[2] = {0, 0};
+  if (terms <= 0 || terms > kAccMaxTerms || n <= 0 ||
+      log_groups > kAccLogMaxGroups)
+    return (int)cudaErrorInvalidValue;
+  ext = ext ? 1 : 0;
+  if (!occupancy[ext]) {
+    int dev, rc;
+    if ((rc = (int)cudaGetDevice(&dev))) return rc;
+    if ((rc = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)))
+      return rc;
+    const void* kernel = ext ? (const void*)acc_group_kernel<true>
+                             : (const void*)acc_group_kernel<false>;
+    cudaFuncAttributes attr;
+    if ((rc = (int)cudaFuncGetAttributes(&attr, kernel))) return rc;
+    regs[ext] = attr.numRegs;
+    if ((rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &occupancy[ext], kernel, kAccThreads, 0)))
+      return rc;
+  }
+  const long long slots = (long long)sms * occupancy[ext];
+  int best = 0;
+  if (log_groups >= 0) {
+    if ((1LL << log_groups) > terms) return (int)cudaErrorInvalidValue;
+    best = log_groups;
+  } else {
+    double best_busy = -1.0;
+    for (int lg = 0; lg <= kAccLogMaxGroups && (1LL << lg) <= terms; ++lg) {
+      const long long per = kAccThreads >> lg, groups = 1LL << lg;
+      const long long blocks = (n + per - 1) / per;
+      const long long waves = (blocks + slots - 1) / slots;
+      const double busy = (double)blocks / (double)(waves * slots) *
+                          (double)terms /
+                          (double)(groups * ((terms + groups - 1) / groups));
+      if (busy > best_busy * kAccSplitGain) {
+        best_busy = busy;
+        best = lg;
+      }
+    }
+  }
+  const long long per = kAccThreads >> best;
+  out[0] = best;
+  out[1] = per;
+  out[2] = (n + per - 1) / per;
+  out[3] = occupancy[ext];
+  out[4] = sms;
+  out[5] = regs[ext];
+  return 0;
+}
+
 // F3. acc (n, 3) += sum over the T = `terms` terms of (w[t, 0] + w[t, 1] *
-// starts[t] * ratios[t]^i) * stack[t, i] for i < n, in place. stack word
-// (t, i[, k]) at t * ts + i * is (+ k * cs) for an extension stack
-// (ext = 1), a base stack (ext = 0) ignores cs; w (T, 2, 3), ratios and
-// starts (T,), all contiguous.
-extern "C" int acc_group_launch(void* acc, const void* stack, const void* w,
-                                const void* ratios, const void* starts,
-                                long long terms, long long n, long long ts,
-                                long long is, long long cs, int ext,
-                                void* stream) {
+// starts[t] * ratios[t]^i) * column_t[i] for i < n, in place. `cols` holds
+// T triples (address, position stride, coefficient stride; strides in
+// words) on the host: column t's word (i[, k]) lies at address + 8 (i * is
+// [+ k * cs]), an extension column (ext = 1) or a base one (ext = 0, cs
+// unused). w (T, 2, 3), ratios and starts (T,), all contiguous; `tables`
+// device scratch of T * (kAccTile + kAccMid + ceil(n / 2^kAccLogTop))
+// words. Two launches: the power tables, then the accumulation, on the
+// plan of acc_group_plan (`log_groups` as there). T <= kAccMaxTerms.
+extern "C" int acc_group_launch(void* acc, const long long* cols,
+                                long long terms, long long n, int ext,
+                                const void* w, const void* ratios,
+                                const void* starts, void* tables,
+                                int log_groups, void* stream) {
   if (terms <= 0 || n <= 0) return 0;
-  const long long per_block = (long long)kAccThreads * kAccRun;
-  const long long blocks = (n + per_block - 1) / per_block;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  long long plan[6];
+  int rc = acc_group_plan(ext, terms, n, log_groups, plan);
+  if (rc) return rc;
+  if (plan[2] > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const long long top = (n + (1LL << kAccLogTop) - 1) >> kAccLogTop;
   AccArgs A;
   A.acc = static_cast<uint64_t*>(acc);
-  A.stack = static_cast<const uint64_t*>(stack);
   A.w = static_cast<const uint64_t*>(w);
-  A.ratios = static_cast<const uint64_t*>(ratios);
-  A.starts = static_cast<const uint64_t*>(starts);
+  A.tables = static_cast<const uint64_t*>(tables);
   A.terms = terms;
   A.n = n;
-  A.ts = ts;
-  A.is = is;
-  A.cs = cs;
+  A.row = kAccTile + kAccMid + top;
+  A.log_groups = (int)plan[0];
+  for (long long t = 0; t < terms; ++t) {
+    A.term[t].ptr = reinterpret_cast<const uint64_t*>(cols[3 * t]);
+    A.term[t].is = cols[3 * t + 1];
+    A.term[t].cs = cols[3 * t + 2];
+  }
   const auto s = static_cast<cudaStream_t>(stream);
+  acc_powers_kernel<<<(unsigned int)terms, kAccThreads, 0, s>>>(
+      static_cast<const uint64_t*>(ratios),
+      static_cast<const uint64_t*>(starts), static_cast<uint64_t*>(tables),
+      A.row, top);
+  if ((rc = (int)cudaGetLastError())) return rc;
   if (ext)
-    acc_group_kernel<true><<<(unsigned int)blocks, kAccThreads, 0, s>>>(A);
+    acc_group_kernel<true><<<(unsigned int)plan[2], kAccThreads, 0, s>>>(A);
   else
-    acc_group_kernel<false><<<(unsigned int)blocks, kAccThreads, 0, s>>>(A);
+    acc_group_kernel<false><<<(unsigned int)plan[2], kAccThreads, 0, s>>>(A);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@
     coefficient words);
   - F2 `xf_binary`: F_p^3 mul and mul_base, for `xfield.mul/mul_base`;
   - F3 `acc_group`: the weighted accumulation of the combination, for
-    `protocol/stark.py` `_acc_group`.
+    `protocol/stark.py` `_acc_group`, on power tables of its own launch;
+    a group's columns are read where they lie (`acc_columns`).
 
 The public names in `field.py`, `xfield.py` and `stark.py` call
 `card_device` first: operands on a CUDA device come here and launch a
@@ -26,15 +27,26 @@ import torch
 
 from . import cuda_build
 
-# launches of F1, F2 and F3 since import (or since a caller reset them)
+# launches of F1, F2 and F3 since import (or since a caller reset them);
+# each F3 launch comes after a launch of its power tables, counted beside it
 LAUNCHES_ELEMENTWISE = 0
 LAUNCHES_XFIELD = 0
 LAUNCHES_ACC = 0
+LAUNCHES_ACC_POWERS = 0
 
 # op codes of csrc/field.cu
 ADD, SUB, MUL, XMUL, XMUL_BASE = 0, 1, 2, 3, 4
 
 MAX_DIMS = 6  # csrc/field.cu kMaxDims
+# csrc/field.cu's F3 constants: threads a block, log2 of the most term
+# groups a block, terms a launch, and the power tables' split of a
+# position i = (ACC_MID h + m) ACC_TILE + j
+ACC_THREADS = 256
+ACC_LOG_MAX_GROUPS = 3
+ACC_MAX_TERMS = 64
+ACC_TILE = 256
+ACC_MID = 64
+ACC_SPLIT_GAIN = 1.05
 
 _LIB = None
 _DIMS = ctypes.c_longlong * MAX_DIMS
@@ -52,11 +64,15 @@ def _kernel_lib():
         lib.xf_binary_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 3 + layout
             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        lib.acc_group_plan.argtypes = (
+            [ctypes.c_int] + [ctypes.c_longlong] * 2
+            + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)])
         lib.acc_group_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5
-            + [ctypes.c_int, ctypes.c_void_p])
+            [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
         for fn in (lib.gl_binary_launch, lib.xf_binary_launch,
-                   lib.acc_group_launch):
+                   lib.acc_group_plan, lib.acc_group_launch):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -205,37 +221,110 @@ def xf_binary(op: int, a, b, device):
     return out
 
 
-def acc_group(acc, stack, w_pairs, ratios, starts, n: int):
+def acc_table_words(n: int) -> int:
+    """Words of F3's power tables a term for n positions: r^j (j <
+    ACC_TILE), r^(ACC_TILE m) (m < ACC_MID), start·r^(ACC_TILE ACC_MID h)."""
+    return ACC_TILE + ACC_MID + -(-n // (ACC_TILE * ACC_MID))
+
+
+def acc_geometry(terms: int, n: int, slots: int,
+                 log_groups: Optional[int] = None) -> Tuple[int, int, int]:
+    """(log2 G, positions a block, blocks) of an F3 launch, as
+    csrc/field.cu `acc_group_plan` makes it for `slots` = SMs x blocks an SM
+    holds: of G = 1, 2, 4, 8 (G <= T) term groups a block, the one that
+    keeps most slots busy, blocks / (waves·slots) · T / (G·ceil(T / G)),
+    where a larger G must beat the best smaller one by ACC_SPLIT_GAIN;
+    `log_groups` forces it."""
+    if log_groups is None:
+        best, best_busy = 0, -1.0
+        lg = 0
+        while lg <= ACC_LOG_MAX_GROUPS and (1 << lg) <= terms:
+            per, groups = ACC_THREADS >> lg, 1 << lg
+            blocks = -(-n // per)
+            waves = -(-blocks // slots)
+            busy = (blocks / (waves * slots)
+                    * terms / (groups * -(-terms // groups)))
+            if busy > best_busy * ACC_SPLIT_GAIN:
+                best, best_busy = lg, busy
+            lg += 1
+        log_groups = best
+    per = ACC_THREADS >> log_groups
+    return log_groups, per, -(-n // per)
+
+
+def acc_plan(ext: bool, terms: int, n: int,
+             log_groups: Optional[int] = None) -> dict:
+    """The card's plan of an F3 launch (`acc_group_plan`): log2 of the term
+    groups a block, positions a block, blocks, blocks an SM holds, SMs and
+    registers a thread. Needs the card."""
+    out = (ctypes.c_longlong * 6)()
+    rc = _kernel_lib().acc_group_plan(
+        int(ext), terms, n, -1 if log_groups is None else log_groups, out)
+    if rc != 0:
+        raise RuntimeError(f"acc_group_plan failed: cudaError {rc}")
+    keys = ("log_groups", "positions_per_block", "blocks", "blocks_per_sm",
+            "sms", "registers")
+    return dict(zip(keys, out))
+
+
+def acc_columns(parts) -> List[Tuple[torch.Tensor, int, int, int]]:
+    """F3's terms of a group given as parts, (T, n) or (T, n, 3) tensors:
+    for each term (the part it lies in, the offset of its first word from
+    the part's, its position stride, its coefficient stride), in words."""
+    cols = []
+    for part in parts:
+        st = part.stride()
+        cs = st[2] if part.dim() == 3 else 0
+        cols += [(part, k * st[0], st[1], cs) for k in range(part.shape[0])]
+    return cols
+
+
+def acc_group(acc, stack, w_pairs, ratios, starts, n: int,
+              log_groups: Optional[int] = None):
     """F3: acc += Σ_t (w_pairs[t, 0] + w_pairs[t, 1]·starts[t]·ratios[t]^i)
     · stack[t, i] for i < n, the body of `BrainfuckStark._acc_group`.
     acc (n, 3); stack (T, n) base or (T, n, 3) extension terms at any
-    strides; w_pairs (T, 2, 3); ratios, starts (T,); all int64 on one CUDA
-    device. acc is updated in place (a contiguous copy of it first, if it
-    is not contiguous) and returned."""
-    global LAUNCHES_ACC
-    device = card_device(acc, stack, w_pairs, ratios, starts)
+    strides, or a sequence of such parts, the group's terms in order (read
+    where they lie: no concatenation); w_pairs (T, 2, 3); ratios, starts
+    (T,); all int64 on one CUDA device. acc is updated in place (a
+    contiguous copy of it first, if it is not contiguous) and returned.
+    Groups of more than ACC_MAX_TERMS terms take several launches;
+    `log_groups` forces the term split (`acc_geometry`)."""
+    global LAUNCHES_ACC, LAUNCHES_ACC_POWERS
+    parts = [stack] if isinstance(stack, torch.Tensor) else list(stack)
+    device = card_device(acc, w_pairs, ratios, starts, *parts)
     if device is None:
         raise ValueError("acc_group launches on a CUDA device only")
-    T = stack.shape[0] if stack.dim() else 0
-    ext = stack.dim() == 3
-    if (stack.dim() not in (2, 3) or stack.shape[1] != n
-            or (ext and stack.shape[2] != 3)
-            or tuple(acc.shape) != (n, 3)
-            or tuple(w_pairs.shape) != (T, 2, 3)
+    ext = bool(parts) and parts[0].dim() == 3
+    if (not parts or any(q.dim() != (3 if ext else 2) or q.shape[1] != n
+                         or (ext and q.shape[2] != 3) for q in parts)):
+        raise ValueError(f"acc_group: stack {[tuple(q.shape) for q in parts]}"
+                         f" for n = {n}")
+    T = sum(int(q.shape[0]) for q in parts)
+    if (tuple(acc.shape) != (n, 3) or tuple(w_pairs.shape) != (T, 2, 3)
             or tuple(ratios.shape) != (T,) or tuple(starts.shape) != (T,)):
         raise ValueError(
-            f"acc_group: acc {tuple(acc.shape)}, stack {tuple(stack.shape)}, "
-            f"w_pairs {tuple(w_pairs.shape)}, ratios {tuple(ratios.shape)}, "
-            f"starts {tuple(starts.shape)} for n = {n}")
+            f"acc_group: acc {tuple(acc.shape)}, w_pairs "
+            f"{tuple(w_pairs.shape)}, ratios {tuple(ratios.shape)}, "
+            f"starts {tuple(starts.shape)} for {T} terms of n = {n}")
     acc = _on(acc, device)
     if not acc.is_contiguous():
         acc = acc.contiguous()
-    stack = _on(stack, device)
+    parts = [_on(q, device) for q in parts]
     w, r, s = (_on(t, device).contiguous() for t in (w_pairs, ratios, starts))
     if T == 0 or n == 0:
         return acc
-    _launch("acc_group_launch", device, _ptr(acc), _ptr(stack), _ptr(w),
-            _ptr(r), _ptr(s), T, n, stack.stride(0), stack.stride(1),
-            stack.stride(2) if ext else 0, int(ext))
-    LAUNCHES_ACC += 1
+    cols = acc_columns(parts)
+    for lo in range(0, T, ACC_MAX_TERMS):
+        chunk = cols[lo:lo + ACC_MAX_TERMS]
+        k = len(chunk)
+        flat = (ctypes.c_longlong * (3 * k))()
+        for t, (q, off, st_i, st_c) in enumerate(chunk):
+            flat[3 * t:3 * t + 3] = [q.data_ptr() + 8 * off, st_i, st_c]
+        tables = acc.new_empty((k, acc_table_words(n)))
+        _launch("acc_group_launch", device, _ptr(acc), flat, k, n, int(ext),
+                _ptr(w[lo:lo + k]), _ptr(r[lo:lo + k]), _ptr(s[lo:lo + k]),
+                _ptr(tables), -1 if log_groups is None else log_groups)
+        LAUNCHES_ACC_POWERS += 1
+        LAUNCHES_ACC += 1
     return acc

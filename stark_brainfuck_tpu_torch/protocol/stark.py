@@ -532,18 +532,28 @@ class BrainfuckStark:
     def _acc_group(self, acc, stack, w_pairs_g, ratios_g, opow_g,
                    chunk: int = 16, length: Optional[int] = None):
         """acc += Σ_t (w_plain_t + w_shift_t·x^s_t)·stack[t].
-        stack: (T, N) base or (T, N, 3) extension terms. The x^s rows are
-        geometric progressions offset^s·(omega^s)^i. `length` takes N's
-        place for the streamed, per-class accumulation, where opow_g holds
-        the class's starts (offset·ω^b)^s and ratios_g the per-position
-        ratios (ω^B)^s. On a CUDA device one launch of kernel F3
-        (`field_kernels.acc_group`), which updates acc in place and makes no
-        (T, N, 3) temporary; on the CPU `_acc_group_plain`, chunked."""
+        stack: (T, N) base or (T, N, 3) extension terms, or a sequence of
+        such parts, the group's terms in order (columns of the LDE tensors,
+        read where they lie). The x^s rows are geometric progressions
+        offset^s·(omega^s)^i. `length` takes N's place for the streamed,
+        per-class accumulation, where opow_g holds the class's starts
+        (offset·ω^b)^s and ratios_g the per-position ratios (ω^B)^s. On a
+        CUDA device one launch of kernel F3 (`field_kernels.acc_group`,
+        after one of its power tables), which updates acc in place and
+        makes no (T, N, 3) temporary; on the
+        CPU `_acc_group_plain` on each part, chunked (a field sum is exact,
+        so the parts' order of summing changes no bit)."""
         N = length if length is not None else self.fri.domain.length
-        if fk.card_device(acc, stack) is not None:
-            return fk.acc_group(acc, stack, w_pairs_g, ratios_g, opow_g, N)
-        return self._acc_group_plain(acc, stack, w_pairs_g, ratios_g, opow_g,
-                                     chunk, N)
+        parts = [stack] if isinstance(stack, torch.Tensor) else list(stack)
+        if fk.card_device(acc, *parts) is not None:
+            return fk.acc_group(acc, parts, w_pairs_g, ratios_g, opow_g, N)
+        pos = 0
+        for part in parts:
+            sl = slice(pos, pos + part.shape[0])
+            acc = self._acc_group_plain(acc, part, w_pairs_g[sl],
+                                        ratios_g[sl], opow_g[sl], chunk, N)
+            pos = sl.stop
+        return acc
 
     def _acc_group_plain(self, acc, stack, w_pairs_g, ratios_g, opow_g,
                          chunk: int = 16, length: Optional[int] = None):
@@ -895,24 +905,31 @@ class BrainfuckStark:
         w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
         zinv = self._zerofier_inverses()
 
-        def acc_group(acc, stack, start):
-            count = stack.shape[0]
-            sl = slice(start, start + count)
+        def acc_group(acc, parts, start):
+            sl = slice(start, start + sum(q.shape[0] for q in parts))
             return (
-                self._acc_group(acc, stack, w_pairs[sl], ratios[sl], opows[sl],
-                                length=N),
-                start + count,
+                self._acc_group(acc, parts, w_pairs[sl], ratios[sl],
+                                opows[sl], length=N),
+                sl.stop,
             )
 
         acc = xf.mul(w0[None, :].expand(N, 3), rand_cw)
-        acc, pos = acc_group(acc, torch.cat(list(base_cws), dim=0), 0)
-        acc, pos = acc_group(acc, torch.cat(list(ext_cws), dim=0), pos)
+        # the base and extension groups as the LDE tensors' column views;
+        # an empty table's extension columns (zeros) as a zero-stride view
+        # of one zero word, which F3 reads without touching N words
+        acc, pos = acc_group(acc, list(base_cws), 0)
+        acc, pos = acc_group(
+            acc,
+            [cw if t.height else cw.new_zeros(()).expand(cw.shape)
+             for t, cw in zip(self.tables, ext_cws)],
+            pos,
+        )
         for ti, t in enumerate(self.tables):
             stack = self._table_quotient_stack(
                 ti, base_cws[ti], ext_cws[ti], challenges_arr, terminals_arr,
                 zinv[t.height],
             )
-            acc, pos = acc_group(acc, stack, pos)
+            acc, pos = acc_group(acc, [stack], pos)
             del stack
 
         # permutation-argument difference quotients
@@ -924,7 +941,7 @@ class BrainfuckStark:
             ],
             dim=0,
         )
-        acc, pos = acc_group(acc, pa_stack, pos)
+        acc, pos = acc_group(acc, [pa_stack], pos)
         assert pos == len(shifts), "term/shift bookkeeping mismatch"
         return acc
 

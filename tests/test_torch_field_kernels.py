@@ -7,12 +7,15 @@ On the CPU the public names (`field.add/sub/mul`, `xfield.mul/mul_base`,
 the JAX package's `xp=np` functions on broadcast shapes and strided views,
 the shapes the prover gives them. The kernels cannot run here, so what
 surrounds them is checked instead: the broadcast layout the wrappers pass
-(`field_kernels._layout`) is replayed with the kernels' index arithmetic,
-F3's square-and-multiply schedule is replayed position by position, and
-the dispatch (CUDA tensors to the launcher and never to a plain body, a
-failed launch raises, other devices raise) runs against a stand-in
-launcher. The card-only test at the end and chip_smoke.py hold the kernels
-to the plain versions."""
+(`field_kernels._layout`) is replayed with the kernels' index arithmetic;
+F3's schedule is replayed block by block (its power tables, its launch
+geometry and term split, its unreduced 160-bit sums and their meeting, its
+columns read through the launcher's addresses and strides); the resident
+prove is shown to hand F3 the LDE tensors' columns without a copy; and the
+dispatch (CUDA tensors to the launcher and never to a plain body, a failed
+launch raises, other devices raise) runs against a stand-in launcher. The
+card-only test at the end and chip_smoke.py hold the kernels to the plain
+versions."""
 
 import contextlib
 import os
@@ -294,61 +297,259 @@ def _field_cu_const(name):
         return int(re.search(rf"{name} = (\d+);", fh.read()).group(1))
 
 
-def _emulate_acc_group(acc, stack, w_pairs, ratios, starts, n):
-    """csrc/field.cu `acc_group_kernel`, every thread of every block at
-    once: thread j of block g owns positions g·2^(lt+lr) + j + k·2^lt, and
-    raises ratio to its first one by its own bits, then the block's."""
-    lt = _field_cu_const("kAccLogThreads")
-    lr = _field_cu_const("kAccLogRun")
-    threads, run = 1 << lt, 1 << lr
-    blocks = -(-n // (threads * run))
-    tid = torch.arange(threads)[None, :]
-    blk = torch.arange(blocks)[:, None]
-    p0 = (blk << (lt + lr)) + tid
-    mul, add = tf.mul_plain, tf.add_plain
-    s = torch.zeros((run, blocks, threads, 3), dtype=torch.int64)
-    ext = stack.dim() == 3
-    for t in range(stack.shape[0]):
-        x = starts[t].expand(blocks, threads)
-        b = ratios[t]
-        for k in range(lt):
-            x = torch.where((tid >> k) & 1 == 1, mul(x, b), x)
-            b = mul(b, b)
-        step = b
-        for _ in range(lr):
-            b = mul(b, b)
-        e = blk.expand(blocks, threads)
-        while bool((e > 0).any()):
-            x = torch.where(e & 1 == 1, mul(x, b), x)
-            b = mul(b, b)
-            e = e >> 1
-        for k in range(run):
-            p = p0 + k * threads
-            valid = p < n
-            c = add(mul(w_pairs[t, 1], x[..., None]), w_pairs[t, 0])
-            v = stack[t, p.clamp(max=n - 1)]
-            r = txf.mul_plain(c, v) if ext else txf.mul_base_plain(c, v)
-            s[k] = torch.where(valid[..., None], add(s[k], r), s[k])
-            x = mul(x, step)
-    out = acc.clone()
-    for k in range(run):
-        p = (p0 + k * threads).reshape(-1)
-        keep = p < n
-        out[p[keep]] = add(out[p[keep]], s[k].reshape(-1, 3)[keep])
-    return out
+M64 = 2**64 - 1
+TILE, MID = fk.ACC_TILE, fk.ACC_MID
 
 
-@pytest.mark.parametrize("ext", [False, True], ids=["base", "ext"])
-def test_acc_group_kernel_schedule_matches_plain(ext):
-    """Three blocks, the last one ragged: every position's x^s comes from
-    the right power, and each sum reaches acc once."""
-    n = 2 * 1024 + 300
-    group = [T(g) for g in _group(5, n, ext, 70)]
-    if ext:
-        # the streamed path's stack: a movedim view with strided coefficients
-        group[1] = group[1].movedim(-1, 1).contiguous().movedim(1, -1)
-    want = BrainfuckStark._acc_group_plain(_stub(n), *group)
-    assert torch.equal(_emulate_acc_group(*group, n), want)
+def test_acc_constants_mirror_field_cu():
+    assert fk.ACC_THREADS == 1 << _field_cu_const("kAccLogThreads")
+    assert fk.ACC_LOG_MAX_GROUPS == _field_cu_const("kAccLogMaxGroups")
+    assert fk.ACC_MAX_TERMS == _field_cu_const("kAccMaxTerms")
+    assert TILE == 1 << _field_cu_const("kAccLogTile")
+    assert MID == 1 << _field_cu_const("kAccLogMid")
+    with open(CSRC) as fh:
+        gain = re.search(r"kAccSplitGain = ([0-9.]+);", fh.read()).group(1)
+    assert fk.ACC_SPLIT_GAIN == float(gain)
+    # the reduction of a 160-bit sum folds its top word with 2^128 == -2^32
+    assert pow(2, 128, P) == P - 2**32
+
+
+def _ints(x):
+    """Canonical words as an object array of Python ints."""
+    return np.asarray(U(x) if isinstance(x, torch.Tensor) else x,
+                      dtype=np.uint64).astype(object)
+
+
+def _fill_powers(a, q):
+    """csrc/field.cu `fill_powers` on a list: a[s + j] = a[j]·q^s for j < s
+    in rounds s = 1, 2, 4, ...; returns q^(2^rounds)."""
+    s = 1
+    while s < len(a):
+        m = min(s, len(a) - s)
+        a[s:s + m] = [x * q % P for x in a[:m]]
+        q = q * q % P
+        s *= 2
+    return q
+
+
+def _power_tables(ratios, starts, n):
+    """`acc_powers_kernel`'s rows: r^j, r^(TILE m), start·r^(TILE MID h)."""
+    rows = []
+    for r, st in zip(ratios, starts):
+        pw = [1] + [0] * (TILE - 1)
+        mid = [1] + [0] * (MID - 1)
+        top = [int(st)] + [0] * (fk.acc_table_words(n) - TILE - MID - 1)
+        q = _fill_powers(pw, int(r))
+        assert q == pow(int(r), TILE, P)
+        q = _fill_powers(mid, q)
+        _fill_powers(top, q)
+        rows.append(pw + mid + top)
+    return rows
+
+
+M32 = 2**32 - 1
+
+
+def _mac(s, a, b):
+    """csrc/field.cu `mac` on (even, odd) sums of object arrays: a0 b0 +
+    a1 b1 2^64 into the even sum, a0 b1 + a1 b0 into the odd one."""
+    a0, a1, b0, b1 = a & M32, a >> 32, b & M32, b >> 32
+    return s[0] + a0 * b0 + (a1 * b1 << 64), s[1] + a0 * b1 + a1 * b0
+
+
+def _const(v, n):
+    return np.full(n, v, dtype=object)
+
+
+def _reduce160(e, o):
+    """csrc/field.cu `reduce160` of an (even, odd) sum, word by word: e's
+    top word folded with 2^128 == -2^32, o's with 2^96 == -1."""
+    e2, o2 = e >> 128, o >> 64
+    assert e2 < 2**9 and o2 < 2**9
+    even = ((e & (2**128 - 1)) % P - e2 * 2**32) % P
+    odd = ((o & M64) * 2**32 % P - o2) % P
+    return (even + odd) % P
+
+
+def _emulate_acc_group(acc, parts, w_pairs, ratios, starts, n,
+                       log_groups=None, slots=132 * 3):
+    """csrc/field.cu F3 as the card runs it, block by block: the power
+    tables in doubling rounds, the geometry of `acc_group_plan` (for
+    `slots` = SMs x blocks an SM holds), each block's w_shift·start·r^tile0,
+    the term groups' unreduced 160-bit sums of products, their fold and
+    meeting in shared memory, and the columns read through the launcher's
+    (address, position stride, coefficient stride) triples."""
+    T_ = sum(q.shape[0] for q in parts)
+    ext = parts[0].dim() == 3
+    lg, per, blocks = fk.acc_geometry(T_, n, slots, log_groups)
+    G = 1 << lg
+    tables = _power_tables(_ints(ratios), _ints(starts), n)
+    w = _ints(w_pairs).reshape(T_, 2, 3)
+    words = {}  # each part's storage as ints, with the part's first word
+    for q in parts:
+        flat = torch.as_strided(q, (q.untyped_storage().nbytes() // 8,),
+                                (1,), 0)
+        words[id(q)] = (_ints(flat), q.storage_offset())
+    cols = fk.acc_columns(parts)
+    out = _ints(acc).reshape(n, 3).copy()
+    for b in range(blocks):
+        tile0 = b * per
+        h, m, off = tile0 >> 14, (tile0 >> 8) & (MID - 1), tile0 % TILE
+        x0 = [row[TILE + MID + h] * row[TILE + m] % P for row in tables]
+        pos = tile0 + np.arange(per)
+        valid = pos < n
+        partial = []
+        for g in range(G):
+            sums = [(np.zeros(per, dtype=object), np.zeros(per, dtype=object))
+                    for _ in range(3)]
+            for t in range(g, T_, G):
+                x = np.array(tables[t][off:off + per], dtype=object)
+                shift = [w[t, 1, k] * x0[t] % P for k in range(3)]
+                q, first, st_i, st_c = cols[t]
+                store, base = words[id(q)]
+                at = base + first + np.where(valid, pos, 0) * st_i
+                y = [np.where(valid, store[at + k * st_c], 0)
+                     for k in range(3 if ext else 1)]
+                if ext:
+                    c = [(shift[k] * x + w[t, 0, k]) % P for k in range(3)]
+                    # y's multiplication matrix (X^3 = X - 1) times c
+                    u = (y[0] + y[2]) % P
+                    matrix = [[y[0], P - y[2], P - y[1]],
+                              [y[1], u, (y[1] - y[2]) % P],
+                              [y[2], y[1], u]]
+                    for k in range(3):
+                        for i in range(3):
+                            sums[k] = _mac(sums[k], c[i], matrix[k][i])
+                else:
+                    z = x * y[0] % P
+                    for k in range(3):
+                        sums[k] = _mac(sums[k], _const(shift[k], per), z)
+                        sums[k] = _mac(sums[k], _const(w[t, 0, k], per), y[0])
+            partial.append([np.array([_reduce160(e, o) for e, o in zip(*sv)],
+                                     dtype=object) for sv in sums])
+        for k in range(3):
+            total = sum(partial[g][k] for g in range(G)) % P
+            out[pos[valid], k] = (out[pos[valid], k] + total[valid]) % P
+    return T(out.astype(np.uint64))
+
+
+def _parts(kind, T_, n, seed, device="cpu"):
+    """The group's terms as the prover hands them to F3: `base` one (T, n)
+    tensor, `ext` (T, n, 3) contiguous (a quotient stack), `movedim` the
+    extension LDE's (T, 3, n) rows seen as (T, n, 3), `lde` the resident
+    path's parts: base columns as row slices of one LDE block, or
+    extension columns as movedim views with an empty table's zero-stride
+    zeros between them."""
+
+    def words(x):
+        return T(x).to(device)
+
+    if kind == "base":
+        return [words(_field((T_, n), seed))]
+    if kind == "ext":
+        return [words(_field((T_, n, 3), seed))]
+    if kind == "movedim":
+        return [words(_field((T_, 3, n), seed)).movedim(1, -1)]
+    if kind == "lde-base":
+        block = words(_field((T_ + 3, n), seed))
+        cuts = [3, 3 + T_ // 3, 3 + T_ // 2, 3 + T_]
+        return [block[a:b] for a, b in zip(cuts, cuts[1:])]
+    block = words(_field((3 * (T_ - 1), n), seed))
+    lo = (T_ - 1) // 2
+    rows = block.reshape(T_ - 1, 3, n)
+    return [rows[:lo].movedim(1, -1),
+            torch.zeros((), dtype=torch.int64, device=device).expand(1, n, 3),
+            rows[lo:].movedim(1, -1)]
+
+
+def _concat(parts):
+    return torch.cat([q.contiguous() for q in parts], dim=0)
+
+
+# (terms, n, kind): one position, below a block's tile, a ragged last tile,
+# several tiles, a `top` table entry past the first (n > TILE·MID), the
+# prover's group sizes (1, 2, 9, 16, 21) and its stack layouts; "base" and
+# "ext" are the shapes of the earlier schedule's test
+SCHEDULE_CASES = {
+    "base": (5, 2 * 1024 + 300, "base"),
+    "ext": (5, 2 * 1024 + 300, "movedim"),
+    "n1-T1-base": (1, 1, "base"),
+    "n1-T2-ext": (2, 1, "ext"),
+    "below-tile-T16-base": (16, 100, "base"),
+    "ragged-T21-ext": (21, 2 * TILE + 37, "ext"),
+    "tiles-T21-movedim": (21, 3 * TILE, "movedim"),
+    "tiles-T2-ext": (2, 4 * TILE, "ext"),
+    "lde-T16-base": (16, TILE + 5, "lde-base"),
+    "lde-T9-ext": (9, TILE + 5, "lde-ext"),
+    "top-T1-base": (1, TILE * MID + 37, "base"),
+    "top-T2-movedim": (2, TILE * MID + 37, "movedim"),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_acc_group_kernel_schedule_matches_plain(case):
+    """The kernel's schedule at its own launch geometry and at every term
+    split it allows equals `_acc_group_plain` and the JAX `_acc_group`."""
+    T_, n, kind = SCHEDULE_CASES[case]
+    parts = _parts(kind, T_, n, 70 + T_)
+    _, _, w_pairs, ratios, starts = (T(g) for g in _group(T_, n, False, 71))
+    acc = T(_field((n, 3), 72))
+    stack = _concat(parts)
+    want = BrainfuckStark._acc_group_plain(_stub(n), acc, stack, w_pairs,
+                                           ratios, starts)
+    jax = JBrainfuckStark._acc_group(
+        _jax_stub(n), U(acc), U(stack), U(w_pairs), U(ratios), U(starts), np)
+    assert np.array_equal(U(want), np.asarray(jax))
+    # the CPU route over the parts, without a concatenation
+    assert torch.equal(
+        BrainfuckStark._acc_group(_stub(n), acc, parts, w_pairs, ratios,
+                                  starts), want)
+    splits = [None] + [lg for lg in range(fk.ACC_LOG_MAX_GROUPS + 1)
+                       if 1 << lg <= T_]
+    if n > TILE * MID:
+        splits = splits[:2]  # one forced split is enough at this size
+    for lg in splits:
+        got = _emulate_acc_group(acc, parts, w_pairs, ratios, starts, n, lg)
+        assert torch.equal(got, want), (case, lg)
+
+
+@pytest.mark.parametrize("T_", [1, 2, 9, 16, 21])
+def test_acc_geometry_covers_every_position_once(T_):
+    """Every (position, term) pair is summed by exactly one thread, and
+    every position reaches acc from exactly one (group 0's)."""
+    tid = np.arange(fk.ACC_THREADS)
+    for n in list(range(1, 40)) + [255, 256, 257, 1000, 1024, 3 * TILE + 1]:
+        for log_groups in [None] + list(range(fk.ACC_LOG_MAX_GROUPS + 1)):
+            if log_groups is not None and 1 << log_groups > T_:
+                continue
+            lg, per, blocks = fk.acc_geometry(T_, n, 132 * 3, log_groups)
+            G = 1 << lg
+            assert G <= T_ and per * G == fk.ACC_THREADS
+            g, j = tid >> (8 - lg), tid & (per - 1)
+            hits = np.zeros((n, T_), dtype=np.int64)
+            writes = np.zeros(n, dtype=np.int64)
+            for b in range(blocks):
+                pos = b * per + j
+                for t in range(T_):
+                    sel = (g == t % G) & (pos < n)
+                    np.add.at(hits[:, t], pos[sel], 1)
+                np.add.at(writes, pos[(g == 0) & (pos < n)], 1)
+            assert (hits == 1).all() and (writes == 1).all(), (n, lg)
+
+
+def test_acc_geometry_rule():
+    """The term split at the prover's shapes, for 132 SMs holding 3 blocks
+    each: one block per 256 positions where the blocks fill many waves, a
+    split where they do not, never more groups than terms."""
+    slots = 132 * 3
+    for T_ in (9, 16, 21):
+        assert fk.acc_geometry(T_, 1 << 21, slots)[0] == 0
+    assert fk.acc_geometry(9, 1 << 17, slots) == (1, 128, 1024)
+    assert fk.acc_geometry(21, 1 << 14, slots)[0] == 2
+    assert fk.acc_geometry(1, 1000, slots) == (0, 256, 4)
+    assert fk.acc_geometry(2, 1000, slots) == (1, 128, 8)
+    assert fk.acc_geometry(16, 1000, slots) == (3, 32, 32)
+    assert fk.acc_geometry(9, 1 << 17, slots, log_groups=0) == (0, 256, 512)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +610,7 @@ def test_cuda_tensors_reach_the_launchers_and_are_counted(stand_in):
     a, b = _cuda(_field((6, 3), 1)), _cuda(_field((6, 3), 2))
     base = _cuda(_field((6,), 3))
     before = (fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD, fk.LAUNCHES_ACC)
+    powers = fk.LAUNCHES_ACC_POWERS
     for fn, op in ((tf.add, fk.ADD), (tf.sub, fk.SUB), (tf.mul, fk.MUL)):
         out = fn(a, b)
         assert out.shape == (6, 3) and out.is_contiguous()
@@ -429,9 +631,119 @@ def test_cuda_tensors_reach_the_launchers_and_are_counted(stand_in):
         _cuda(_field((2,), 7)), _cuda(_field((2,), 8)))
     assert got is acc, "F3 updates a contiguous acc in place"
     name, args = stand_in.calls[-1]
-    assert name == "acc_group_launch" and args[5:-1] == (2, 6, 18, 3, 1, 1)
-    assert (fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD, fk.LAUNCHES_ACC) == (
-        before[0] + 4, before[1] + 2, before[2] + 1)
+    # (acc, columns, T, n, ext, w, ratios, starts, tables, log2 G, stream)
+    assert name == "acc_group_launch" and args[2:5] == (2, 6, 1)
+    assert args[-2] == -1, "the kernel's own plan chooses the term split"
+    assert list(args[1]) == [stack.data_ptr(), 3, 1,
+                             stack.data_ptr() + 8 * 18, 3, 1]
+    assert (fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD, fk.LAUNCHES_ACC,
+            fk.LAUNCHES_ACC_POWERS) == (before[0] + 4, before[1] + 2,
+                                        before[2] + 1, powers + 1)
+    # a group in parts is one launch, its columns where they lie; more than
+    # ACC_MAX_TERMS terms take one launch each ACC_MAX_TERMS
+    rows = _cuda(_field((5, 3, 6), 9))
+    parts = [rows[:2].movedim(1, -1), rows[2:].movedim(1, -1)]
+    n_launch = len(stand_in.calls)
+    BrainfuckStark._acc_group(
+        _stub(6), acc, parts, _cuda(_field((5, 2, 3), 10)),
+        _cuda(_field((5,), 11)), _cuda(_field((5,), 12)))
+    name, args = stand_in.calls[-1]
+    assert len(stand_in.calls) == n_launch + 1 and args[2:5] == (5, 6, 1)
+    assert list(args[1]) == sum(([rows.data_ptr() + 8 * 18 * t, 1, 6]
+                                 for t in range(5)), [])
+    many = fk.ACC_MAX_TERMS + 3
+    fk.acc_group(acc, _cuda(_field((many, 6), 13)),
+                 _cuda(_field((many, 2, 3), 14)), _cuda(_field((many,), 15)),
+                 _cuda(_field((many,), 16)), 6)
+    assert [c[1][2] for c in stand_in.calls[-2:]] == [fk.ACC_MAX_TERMS, 3]
+
+
+def test_resident_combination_reads_the_lde_columns_in_place(monkeypatch):
+    """The resident prove hands F3 its base and extension groups as the LDE
+    tensors' column views: every part shares the storage of its stage's
+    forward LDE output, no torch.cat of its columns runs in the combination,
+    and an empty table's extension columns are a zero-stride view of one
+    zero word. Through a stand-in launcher each column's address lies in that
+    storage. (The proof's bytes against the JAX package's: test_torch_stark.)"""
+    import stark_brainfuck_tpu as J
+    import stark_brainfuck_tpu_torch as TP
+
+    ldes, groups, cats = [], [], []
+    forward_lde = BrainfuckStark._forward_lde
+    acc_group = BrainfuckStark._acc_group
+    combine = BrainfuckStark._combination_pipeline
+    cat = torch.cat
+
+    def record_lde(self, *args):
+        ldes.append(forward_lde(self, *args))
+        return ldes[-1]
+
+    def record_group(self, acc, stack, *args, **kw):
+        groups.append(stack)
+        return acc_group(self, acc, stack, *args, **kw)
+
+    def record_cat(tensors, *args, **kw):
+        cats.append(list(tensors))
+        return cat(tensors, *args, **kw)
+
+    def combination(self, *args):
+        monkeypatch.setattr(torch, "cat", record_cat)
+        try:
+            return combine(self, *args)
+        finally:
+            monkeypatch.setattr(torch, "cat", cat)
+
+    monkeypatch.setattr(BrainfuckStark, "_forward_lde", record_lde)
+    monkeypatch.setattr(BrainfuckStark, "_acc_group", record_group)
+    monkeypatch.setattr(BrainfuckStark, "_combination_pipeline", combination)
+    program = J.VirtualMachine.compile("++++")
+    tr = J.VirtualMachine.simulate(program, "")
+    stark = TP.BrainfuckStark(
+        tr["processor"].shape[0], tr["memory"].shape[0], program, "",
+        tr["output_data"], TP.StarkConfig(seed=0), device="cpu")
+    proof = stark.prove(tr["processor"], tr["memory"], tr["instruction"],
+                        tr["input"], tr["output"])
+    assert stark.verify(proof)
+
+    def storage(x):
+        return x.untyped_storage().data_ptr()
+
+    base_lde, ext_lde = ldes
+    base_parts, ext_parts = groups[:2]
+    heights = [t.height for t in stark.tables]
+    assert 0 in heights, "the program leaves a table empty"
+    assert len(base_parts) == len(ext_parts) == len(stark.tables)
+    assert all(storage(q) == storage(base_lde) for q in base_parts)
+    for height, q in zip(heights, ext_parts):
+        if height:
+            assert storage(q) == storage(ext_lde) and q.stride()[1] == 1
+        else:
+            assert q.stride() == (0, 0, 0) and not q.any()
+    # (a quotient may lift one column with torch.cat: `xfield.from_base`)
+    assert not any(
+        len(ts) > 1 and all(storage(x) == storage(lde) for x in ts)
+        for ts in cats for lde in (base_lde, ext_lde)
+    ), "the combination concatenated columns of an LDE"
+
+    lib = _Lib()
+    monkeypatch.setattr(fk, "_kernel_lib", lambda: lib)
+    monkeypatch.setattr(fk, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    N = stark.fri.domain.length
+    for parts, lde in ((base_parts, base_lde), (ext_parts, ext_lde)):
+        T_ = sum(q.shape[0] for q in parts)
+        fk.acc_group(_cuda(_field((N, 3), 1)),
+                     [q.as_subclass(_ReportsCuda) for q in parts],
+                     _cuda(_field((T_, 2, 3), 2)), _cuda(_field((T_,), 3)),
+                     _cuda(_field((T_,), 4)), N)
+        name, args = lib.calls[-1]
+        cols = np.array(list(args[1])).reshape(-1, 3)
+        assert name == "acc_group_launch" and len(cols) == T_
+        inside = (cols[:, 0] >= lde.data_ptr()) & (
+            cols[:, 0] < lde.data_ptr() + 8 * lde.numel())
+        zero = (cols[:, 1] == 0) & (cols[:, 2] == 0)
+        assert (inside | zero).all() and (inside ^ zero).all()
 
 
 def test_a_failed_launch_raises(stand_in):
@@ -515,3 +827,14 @@ def test_cuda_kernels_match_plain_versions():
         got = BrainfuckStark._acc_group(_stub(5000), group[0].clone(),
                                         *group[1:])
         assert torch.equal(got, want)
+    # F3 on parts, at every term split, T = 1 and ragged n
+    for case in SCHEDULE_CASES.values():
+        T_, n, kind = case
+        parts = _parts(kind, T_, n, 110, device="cuda")
+        acc, _, w, r, st = (card(T(g)) for g in _group(T_, n, False, 111))
+        want = BrainfuckStark._acc_group_plain(_stub(n), acc,
+                                               _concat(parts), w, r, st)
+        for lg in [None] + [k for k in range(fk.ACC_LOG_MAX_GROUPS + 1)
+                            if 1 << k <= T_]:
+            got = fk.acc_group(acc.clone(), parts, w, r, st, n, lg)
+            assert torch.equal(got, want), (case, lg)
