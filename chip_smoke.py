@@ -61,17 +61,25 @@ line each; any failure raises and exits non-zero:
      equal to the resident one of step 5; stream_checkpoint: the same with
      a `checkpoint_dir`, whose second prove resumes both commit stages to
      the same bytes; stream_kernels: B1 against its plain version at the
-     streamed shapes (S = 2^17 messages: both leaf widths, the salt PRF, a
-     pair combine; the ladder's levels of 2^16 and 1,024 parents; the 2^22
-     leaves and pair messages of the combination's tree), B2 and B3 against
-     their plain versions in the launches of the size-S class transform
-     (c = 256, r = 512; 19 and 27 rows), and `block_values` on B2/B3
-     against the u64 network at (19, S) and (27, S), all exactly;
-     stream_prove: a counter of 2^16 cycles
-     (FRI 2^22, which the default `stream_min` sends down the streamed
-     path) proved resident (`stream_min` = 2^23) and streamed with 32 and
-     with 2 classes, each on both NTT paths, all bytes equal, with launch
-     counts, stage times and peak memory per prove;
+     streamed shapes (32 classes of S = 2^17, G = 8 classes a dispatch: a
+     group's G·S messages at both leaf widths and of its salt PRF, an
+     in-group pair level of (G/2)·S pairs read from the group's digest
+     block, an accumulator combine at S; the ladder's levels of 2^16 and
+     1,024 parents; a 2-class group's 2^22 leaves; the 2^22 leaves and pair
+     messages of the combination's tree), B2 and B3 against their plain
+     versions in the launches of the size-S class transform at a group's
+     batch (c = 256, r = 512; G x 19 and G x 27 rows), `block_values` on
+     B2/B3 against the u64 network at (19, S) and (27, S), and
+     `group_values` of G classes on B2/B3 and on the u64 network against G
+     one-class evaluations, all exactly; stream_prove: a counter of 2^16
+     cycles (FRI 2^22, which the default `stream_min` sends down the
+     streamed path) proved resident (`stream_min` = 2^23) and streamed with
+     32 (G = 8) and with 2 classes (G = 2), each on both NTT paths, all
+     bytes equal, B2/B3 launched twice and once a class transform on the
+     mxu path (4B/G + 2B transforms), B1 exactly as often as the resident
+     prove's count gives (`streamed_b1`), with launch counts, the group,
+     the merkle and reopen times, stage times and peak memory per prove
+     beside the ungrouped prove's (`BASELINE_STREAM`);
   8. the other paths of the main path's kernels: ref_codec_bytes: the
      N=16384 program with `codec="ref"` (host trees over pickled leaf
      objects; B1 still runs the salt and randomizer PRFs), the same bytes on
@@ -122,7 +130,8 @@ its memory traffic cut out of the source, print one JSON line each and
 stop before the checks. `--stream-log2-cycles K` is the same kind of aid
 for the streamed prover: after the build it proves a counter of 2^K cycles
 (FRI 2^(K+6)) with 32 classes on both NTT paths, holds the two proofs equal
-and verified, prints one stream_prove line each and stops.
+and verified and the B2/B3 launches to the class transforms, prints one
+stream_prove line each and stops.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -1193,16 +1202,58 @@ def b_counts(counts):
     return {k: counts[k] for k in ("b1", "b2", "b3")}
 
 
-# stage_c of the proves before F3's redesign (PERF.md; NVIDIA H100 80GB
-# HBM3, 700.00 W): the 2^15-cycle resident prove (two timed proves) and
-# the 2^16-cycle streamed one, {(classes, NTT backend): s} (1 = resident),
-# with F3's launches, for each prove's line to stand beside
+# stage_c of the resident prove before F3's redesign (PERF.md; NVIDIA H100
+# 80GB HBM3, 700.00 W), for the full-size prove's line to stand beside
 STAGE_C = "stage_c (quotients+combination)"
 BASELINE_FULL_PROVE = {"f3_launches": 8, "stage_c_s": [0.0427, 0.0574],
                        "peak_bytes_at_stage_c": 4553993728}
-BASELINE_STREAM = {(1, "auto"): (0.097, 8), (32, "auto"): (1.320, 256),
-                   (32, "mxu"): (1.639, 256), (2, "auto"): (0.232, 16),
-                   (2, "mxu"): (0.164, 16)}
+# the 2^16-cycle prove before the streamed classes were grouped, one class
+# a dispatch (PERF.md, PR 9 call 8; NVIDIA H100 80GB HBM3, 700.00 W):
+# {(classes, NTT backend): ...} (1 = resident), the merkle time the sum of
+# the base and extension commitments
+BASELINE_STREAM = {
+    (1, "auto"): {"group": None, "prove_s": 0.5112, "merkle_s": 0.026,
+                  "reopen_s": None, "stage_c_s": 0.0857,
+                  "max_memory_allocated": 8721072640,
+                  "b1": 121, "b2": 0, "b3": 0},
+    (32, "auto"): {"group": 1, "prove_s": 2.5802, "merkle_s": 0.364,
+                   "reopen_s": 0.408, "stage_c_s": 1.4049,
+                   "max_memory_allocated": 1671442432,
+                   "b1": 297, "b2": 0, "b3": 0},
+    (32, "mxu"): {"group": 1, "prove_s": 1.9687, "merkle_s": 0.256,
+                  "reopen_s": 0.233, "stage_c_s": 1.0923,
+                  "max_memory_allocated": 1673028608,
+                  "b1": 297, "b2": 384, "b3": 192},
+    (2, "auto"): {"group": 1, "prove_s": 1.1727, "merkle_s": 0.170,
+                  "reopen_s": 0.115, "stage_c_s": 0.2239,
+                  "max_memory_allocated": 5088794112,
+                  "b1": 125, "b2": 0, "b3": 0},
+    (2, "mxu"): {"group": 1, "prove_s": 0.6328, "merkle_s": 0.033,
+                 "reopen_s": 0.043, "stage_c_s": 0.1498,
+                 "max_memory_allocated": 4343410688,
+                 "b1": 125, "b2": 24, "b3": 12},
+}
+MERKLE_STAGES = ("base merkle (streamed)", "ext merkle (streamed)",
+                 "base merkle (device)", "ext merkle (device)")
+REOPEN_STAGE = "reopen (streamed 2nd pass)"
+
+
+def class_transforms(B: int, G: int) -> int:
+    """Size-S class transforms of a streamed prove in B classes, G a
+    dispatch: B/G in each of the two commit passes and the two reopens
+    (base and extension), and 2 a class in the combination, which takes one
+    class at a time (as the JAX package's does)."""
+    return 4 * B // G + 2 * B
+
+
+def streamed_b1(resident_b1: int, B: int, G: int) -> int:
+    """B1 launches of a streamed prove, from the resident prove's of the
+    same claim. A commit pass hashes each group's salts, leaves and log2 G
+    pair levels, combines B/G - 1 times in the accumulator and runs a
+    ladder log2 B levels shorter than the resident tree's, which hashed its
+    salts and leaves once: (B/G)(3 + log2 G) - 3 - log2 B more a pass."""
+    log_g, log_b = G.bit_length() - 1, B.bit_length() - 1
+    return resident_b1 + 2 * ((B // G) * (3 + log_g) - 3 - log_b)
 
 
 def stage_c(bfs, counts):
@@ -1317,14 +1368,17 @@ def stream_bytes(want):
         assert proof_gpu == proof_cpu, "stream_bytes: cuda and cpu differ"
         assert proof_gpu == want, "stream_bytes: streamed and resident differ"
         assert bfs_gpu.verify(proof_gpu), bfs_gpu.last_rejection
-        # S = 4096 is one sub-transform: a B2 launch and no B3 for each of
-        # the 6 class transforms of each of the 4 classes
+        # S = 4096 is one sub-transform: a B2 launch and no B3 for each
+        # class transform (the 4 classes in one group)
+        m = bfs_gpu.last_metrics
+        assert m["stream_group"] == 4, m["stream_group"]
         assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
-            (24, 0) if backend == "mxu" else (0, 0)), counts
+            (class_transforms(4, 4), 0) if backend == "mxu" else (0, 0)
+        ), counts
         emit("stream_bytes", ntt_backend=backend,
              fri_domain=bfs_gpu.fri.domain.length,
-             classes=bfs_gpu.last_metrics["stream_classes"],
-             block=bfs_gpu.last_metrics["stream_block"],
+             classes=m["stream_classes"], block=m["stream_block"],
+             group=m["stream_group"],
              ntt_path=[bfs_gpu.last_metrics["ntt_path"],
                        bfs_cpu.last_metrics["ntt_path"]],
              identical=True, identical_to_resident=True, verified=True,
@@ -1354,15 +1408,21 @@ def stream_checkpoint(want):
 
 def stream_kernels():
     """The kernels at the streamed prove's shapes (FRI 2^22 in 32 classes of
-    S = 2^17). B1 against its plain version: a class's two leaf widths, its
-    salt PRF and a pair combine at S messages, two levels of the ladder
-    (`merkle_parents` to 2^16 and to 1,024 parents), and the 2^22 leaves
-    and 128-byte messages of the combination's tree. B2 and B3 against
-    their plain versions in the launches of the size-S class transform:
-    the column pass, the row pass with its transposed store, and the outer
-    twiddle, for the 19 base and the 27 extension rows. Then `block_values`
-    on B2/B3 against the u64 network for both groups. Exact, or it
-    raises."""
+    S = 2^17, G = 8 classes a dispatch; 2 classes of 2^21, G = 2). B1
+    against its plain version: a group's two leaf widths and its salt PRF
+    at G·S messages, one in-group pair level ((G/2)·S pairs read from the
+    (G/2, 2, S, 8) digest block), an accumulator combine at S messages, two
+    levels of the ladder (`merkle_parents` to 2^16 and to 1,024 parents),
+    the 2^22 leaves of a 2-class group, and the 2^22 leaves and 128-byte
+    messages of the combination's tree. B2 and B3 against their plain
+    versions in the launches of the size-S class transform at a group's
+    batch: the column pass, the row pass with its transposed store, and
+    the outer twiddle, for G x 19 base and G x 27 extension rows. Then
+    `block_values` (one class, as the combination evaluates it) on B2/B3
+    against the u64 network, and `group_values` (G classes, as the commit
+    passes and the reopen evaluate them) on B2/B3 and on the u64 network
+    against G one-class evaluations on the u64 network, for both groups.
+    Exact, or it raises."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
@@ -1370,15 +1430,26 @@ def stream_kernels():
 
     S = STREAM_S
     N = S * STREAM_CLASSES[0]
-    b1_cases = [(S, 32, 176, "leaf"), (S, 32, 240, "leaf"),
-                (S, 16, 24, "salt"), (S, 16, 128, "pair"),
+    G = stream.group_size_for(STREAM_CLASSES[0], S)
+    assert G == 8, G
+    b1_cases = [(G * S, 32, 176, "leaf"), (G * S, 32, 240, "leaf"),
+                (G * S, 16, 24, "salt"), (G * S // 2, 16, 128, "group pair"),
+                (S, 16, 128, "pair"),
                 (S // 2, 16, 128, "ladder"), (1024, 16, 128, "ladder"),
-                (N, 16, 24, "leaf"), (N, 16, 128, "parents")]
+                (N, 32, 240, "leaf"), (N, 16, 24, "leaf"),
+                (N, 16, 128, "parents")]
     for k, (n, W, msg_len, use) in enumerate(b1_cases):
         words = random_messages(n, W, msg_len, seed=40 + k)
         if use == "pair":
             left, right = words[:, :8].contiguous(), words[:, 8:].contiguous()
             run = lambda: B.merkle_parents_pair(left, right)
+        elif use == "group pair":
+            # the messages of sibling classes (2t, 2t+1) of a group's digests
+            digests = random_messages(2 * n, 8, 64, seed=40 + k)
+            pairs = digests.view(-1, 2, S, 8)
+            words = torch.cat([pairs[:, 0], pairs[:, 1]], dim=-1).view(n, W)
+            run = lambda: B.merkle_parents_pair(
+                pairs[:, 0], pairs[:, 1]).view(n, 8)
         elif use == "ladder":
             children = words.reshape(2 * n, 8)
             run = lambda: B.merkle_parents(children)
@@ -1407,65 +1478,93 @@ def stream_kernels():
     plan = plans[True]["pack_S"]
     assert (plan.n, plan.r, plan.c) == (S, 512, 256), (plan.r, plan.c)
     for stage, rows in NTT_ROWS.items():
-        x = random_field(rows, S, 50 + rows)
-        for form, sub, batches, nvec, src, dst in b2_forms(plan, rows)[:2]:
+        k = G * rows
+        x = random_field(k, S, 50 + rows)
+        for form, sub, batches, nvec, src, dst in b2_forms(plan, k)[:2]:
             run = lambda: K.subntt_tiled(x, sub, batches, nvec, src, dst)
             run_plain = lambda: K.subntt_tiled_plain(
                 x, sub, batches, nvec, src, dst)
             err = max_abs_err(run(), run_plain())
             assert err == 0.0, f"B2 differs from plain torch at {(form, stage)}"
             bound_ms, bound_by = bound(
-                16 * rows * S + 8 * sub.table.numel(),
+                16 * k * S + 8 * sub.table.numel(),
                 batches * nvec * subntt_ops(sub.m))
             emit("stream_kernels", kernel="subntt", stage=stage, form=form,
-                 rows=batches * nvec, m=sub.m, tile=K.tile_shape(sub.m, True),
+                 group=G, rows=batches * nvec, m=sub.m,
+                 tile=K.tile_shape(sub.m, True),
                  max_abs_err=err, ms=cuda_ms(run, reps=20),
                  plain_ms=cuda_ms(run_plain, reps=3), bound_ms=bound_ms,
                  bound_by=bound_by)
-        y = x.reshape(rows * plan.c, plan.r)
+        y = x.reshape(k * plan.c, plan.r)
         err = max_abs_err(K.twiddle_outer(y, plan),
                           K.twiddle_outer_plain(y, plan))
         assert err == 0.0, f"B3 differs from plain torch at {tuple(y.shape)}"
         bound_ms, bound_by = bound(
-            16 * rows * S + 8 * (128 + plan.c // 128) * plan.r,
-            2 * GL_MUL_OPS * rows * S)
+            16 * k * S + 8 * (128 + plan.c // 128) * plan.r,
+            2 * GL_MUL_OPS * k * S)
         emit("stream_kernels", kernel="twiddle_outer", stage=stage,
-             rows=rows * plan.c, r=plan.r, c=plan.c, hi_rows=plan.c // 128,
-             max_abs_err=err,
+             group=G, rows=k * plan.c, r=plan.r, c=plan.c,
+             hi_rows=plan.c // 128, max_abs_err=err,
              ms=cuda_ms(lambda: K.twiddle_outer(y, plan), reps=20),
              plain_ms=cuda_ms(lambda: K.twiddle_outer_plain(y, plan), reps=3),
              bound_ms=bound_ms, bound_by=bound_by)
         del x, y
-    wb = f.powers(omega, 4, "cuda")[3:4]
+    wbs = f.powers(omega, STREAM_CLASSES[0], "cuda")
+    b0 = G  # the second group: classes 8 .. 15
     for stage, rows in NTT_ROWS.items():
         # the prove's groups: 3 randomizer rows of N/4 coefficients, the
         # rest table columns of height + 1 (one randomizer)
         groups = (random_field(3, N // 4, 60 + rows),
                   random_field(rows - 3, (N >> 6) + 1, 61 + rows))
-        run = {kernel: (lambda plan=plan: stream.block_values(
-            groups, wb, N // 4, plan["pack_S"], S))
+        one = {kernel: (lambda plan=plan: stream.block_values(
+            groups, wbs[b0 : b0 + 1], N // 4, plan["pack_S"], S))
             for kernel, plan in plans.items()}
+        grouped = {kernel: (lambda plan=plan: stream.group_values(
+            groups, wbs[b0 : b0 + G], N // 4, plan["pack_S"], S))
+            for kernel, plan in plans.items()}
+        per_class = lambda plan: [stream.block_values(
+            groups, wbs[b0 + j : b0 + j + 1], N // 4, plan["pack_S"], S)
+            for j in range(G)]
         reset_counts()
-        got = run[True]()
+        got = one[True]()
         counts = read_counts()
-        want = run[False]()
+        want = one[False]()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         assert err == 0.0, f"block_values on B2/B3 differs at {(rows, S)}"
         assert (counts["b2"], counts["b3"]) == (2, 1), counts
-        del got, want
+        reset_counts()
+        got = grouped[True]()
+        counts = read_counts()
+        assert (counts["b2"], counts["b3"]) == (2, 1), counts
+        want = torch.stack(per_class(plans[False]))
+        got_u64 = grouped[False]()
+        torch.cuda.synchronize()
+        group_err = max(max_abs_err(v.reshape(-1, S), want.reshape(-1, S))
+                        for v in (got, got_u64))
+        assert group_err == 0.0, (
+            f"group_values differs from per-class values at {(G, rows, S)}")
+        del got, want, got_u64
         # the class transform alone (B2, B3, B2 against the u64 network):
         # the rest of `block_values` is the scale row and the fold
         folded = random_field(rows, S, 62 + rows)
         emit("stream_kernels", kernel="block_values", stage=stage, rows=rows,
              S=S, r=plan.r, c=plan.c, max_abs_err=err,
-             kernel_ms=cuda_ms(run[True], reps=10),
-             u64_ms=cuda_ms(run[False], reps=3),
+             kernel_ms=cuda_ms(one[True], reps=10),
+             u64_ms=cuda_ms(one[False], reps=3),
              transform_kernel_ms=cuda_ms(
                  lambda: K.forward_ntt(folded, plan), reps=20),
              transform_u64_ms=cuda_ms(
                  lambda: K.forward_ntt(folded, plans[False]["pack_S"]),
                  reps=3))
+        emit("stream_kernels", kernel="group_values", stage=stage, rows=rows,
+             S=S, group=G, max_abs_err=group_err,
+             kernel_ms=cuda_ms(grouped[True], reps=10),
+             per_class_kernel_ms=cuda_ms(
+                 lambda: per_class(plans[True]), reps=5),
+             u64_ms=cuda_ms(grouped[False], reps=3),
+             per_class_u64_ms=cuda_ms(
+                 lambda: per_class(plans[False]), reps=3))
         del groups, folded
 
 
@@ -1482,13 +1581,17 @@ def stream_proves(log2_cycles, smi, plans):
     raised past its domain.
     Each with the launch counts set to 0 just before it and read just
     after, stage times and peak bytes. All proofs must be equal and the
-    first must verify. Returns the runs."""
+    first must verify. A streamed prove launches B2 and B3 twice and once
+    for each class transform on the mxu path (none on the default one) and,
+    after a resident prove of the claim, exactly `streamed_b1` B1 kernels.
+    Returns the runs."""
     from stark_brainfuck_tpu_torch import VirtualMachine
+    from stark_brainfuck_tpu_torch.protocol import stream
 
     src = counter_program(1 << log2_cycles)
     trace = VirtualMachine.simulate(VirtualMachine.compile(src))
     cycles = int(trace["processor"].shape[0])
-    proof, runs = None, []
+    proof, runs, resident_b1 = None, [], None
     for kind, config in plans:
         if kind == "resident":
             config = {**config, "stream_min": 1 << (log2_cycles + 7)}
@@ -1510,24 +1613,31 @@ def stream_proves(log2_cycles, smi, plans):
         assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (kind, config,
                                                                 counts)
         m = bfs.last_metrics
-        mxu = config.get("ntt_backend") == "mxu"
+        backend = config.get("ntt_backend", "auto")
+        B, S, G = m["stream_classes"], m["stream_block"], m["stream_group"]
         if kind != "resident":
-            # 6 class transforms a class: one a group in the two commit
-            # passes, the combination and the reopen; each 2 B2 and 1 B3
-            transforms = 6 * m["stream_classes"] if mxu else 0
+            assert G == stream.group_size_for(B, S), (B, S, G)
+            # each class transform is 2 B2 and 1 B3 launches on mxu
+            transforms = class_transforms(B, G) if backend == "mxu" else 0
             assert (counts["b2"], counts["b3"]) == (
-                2 * transforms, transforms), counts
+                2 * transforms, transforms), (B, G, counts)
+            if resident_b1 is not None:
+                assert counts["b1"] == streamed_b1(resident_b1, B, G), (
+                    B, G, resident_b1, counts)
         else:
             assert (counts["b2"], counts["b3"]) == (0, 0), counts
-        run = {"kind": kind, "ntt_backend": config.get("ntt_backend", "auto"),
-               "ntt_path": m["ntt_path"], "classes": m["stream_classes"],
-               "block": m["stream_block"], "trace_cycles": cycles,
+            resident_b1 = counts["b1"]
+        stages = m["stages_s"]
+        run = {"kind": kind, "ntt_backend": backend,
+               "ntt_path": m["ntt_path"], "classes": B, "block": S,
+               "group": G, "trace_cycles": cycles,
                "fri_domain": m["fri_domain"], "prove_s": wall,
                "cycles_per_s": cycles / wall, "launches": counts,
-               "stages_s": m["stages_s"], **stage_c(bfs, counts),
-               "baseline_stage_c_s_and_f3_launches": BASELINE_STREAM.get(
-                   (m["stream_classes"] if kind != "resident" else 1,
-                    config.get("ntt_backend", "auto")))
+               "merkle_s": sum(stages.get(k, 0.0) for k in MERKLE_STAGES),
+               "reopen_s": stages.get(REOPEN_STAGE),
+               "stages_s": stages, **stage_c(bfs, counts),
+               "baseline_ungrouped": BASELINE_STREAM.get(
+                   (B if kind != "resident" else 1, backend))
                if log2_cycles == STREAM_LOG2_CYCLES else None,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "peak_bytes_at_mark": m["peak_bytes_at_mark"], **rates(bfs),
@@ -2217,8 +2327,10 @@ def main():
         runs = stream_proves(STREAM_LOG2_CYCLES, smi,
                              [("resident", {})] + stream_plans(STREAM_CLASSES))
         assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
-        for run in runs[1:]:
-            assert run["launches"]["b1"] > runs[0]["launches"]["b1"], run
+        # the JAX rule's groups; stream_proves held every B1, B2 and B3
+        # count to its class groups (B1 against the resident prove's)
+        assert [run["group"] for run in runs[1:]] == [8, 8, 2, 2], [
+            run["group"] for run in runs]
         streamed = {**{k: runs[1]["launches"][k]
                        for k in ("b1", "f1", "f2", "f3")},
                     **{k: runs[2]["launches"][k] for k in ("b2", "b3")}}

@@ -185,10 +185,12 @@ def merkle_parents(d):
 
 def merkle_parents_pair(left, right):
     """Elementwise Merkle combine of two digest arrays: parent[m] =
-    blake2b(left[m] ‖ right[m]), left and right (K, 8). The streamed tree
-    accumulator's combine, where sibling digests live in two class arrays
-    and not interleaved in heap order."""
-    return blake2b_words(torch.cat([left, right], dim=1), 128)
+    blake2b(left[m] ‖ right[m]), left and right (..., 8) of one shape (any
+    strides), the result of that shape. The streamed tree's combine, where
+    sibling digests live in two class arrays and not interleaved in heap
+    order; one launch for every pair of the arrays."""
+    msg = torch.cat([left, right], dim=-1)
+    return blake2b_words(msg.view(-1, 16), 128).view(left.shape)
 
 
 def digests_to_bytes(d) -> bytes:

@@ -62,17 +62,19 @@ def default_cut(n: int) -> int:
 
 
 def leaf_digests(rows, salts=None):
-    """(n, k) int64 rows (+ optional (n, 3) salt words) -> (n, 8) digest
-    words, bit-identical to hashlib.blake2b(encode_leaf(row) [+ salt])."""
-    n, k = int(rows.shape[0]), int(rows.shape[1])
+    """(..., k) int64 rows (+ optional (..., 3) salt words) -> (n, 8) digest
+    words, n the rows' count in row-major order of the leading axes,
+    bit-identical to hashlib.blake2b(encode_leaf(row) [+ salt])."""
+    lead, k = tuple(rows.shape[:-1]), int(rows.shape[-1])
     nwords = k + (3 if salts is not None else 0)
     W = ((nwords + 15) // 16) * 16
     parts = [rows] if salts is None else [rows, salts]
     if W > nwords:
         parts.append(
-            torch.zeros((n, W - nwords), dtype=torch.int64, device=rows.device)
+            torch.zeros(lead + (W - nwords,), dtype=torch.int64,
+                        device=rows.device)
         )
-    return B.blake2b_words(torch.cat(parts, dim=1), 8 * nwords)
+    return B.blake2b_words(torch.cat(parts, dim=-1).view(-1, W), 8 * nwords)
 
 
 def build_levels(rows, salts=None, cut: int = 0, stop: int = _HOST_CUT):

@@ -108,6 +108,7 @@ from .merkle import NATIVE_MIN_LEAVES, Merkle, SaltBuffer, SaltedMerkle
 from .stream import (
     StreamedSaltedMerkle,
     block_values,
+    group_size_for,
     make_stream_plan,
     reopen_rows,
     streamed_commit,
@@ -629,7 +630,10 @@ class BrainfuckStark:
     # classes go through `_acc_group` as the resident path does).
 
     def _stream_plan(self):
-        """B, S and the size-S transform's tables, cached per NTT path."""
+        """B, S and the size-S transform's tables, cached per NTT path. A
+        "group" key set on the cached plan fixes the classes a dispatch of
+        the commit passes and the reopen (`stream.group_size_for`), as the
+        JAX package's plan does."""
         path = self._ntt_path()
         cache = getattr(self, "_splan_cache", None)
         if cache is not None and cache[0] == path:
@@ -1309,6 +1313,10 @@ class BrainfuckStark:
             ntt_path=self._mesh_ntt_path(),
             stream_classes=splan["B"] if use_stream else None,
             stream_block=splan["S"] if use_stream else None,
+            # classes a dispatch of the two commit passes and the reopen
+            stream_group=(group_size_for(splan["B"], splan["S"],
+                                         splan.get("group"))
+                          if use_stream else None),
             # the engine of the trees at N (base, extension, combination);
             # FRI's smaller trees may take another: hashlib below
             # NATIVE_MIN_LEAVES, host trees below fri_host_min

@@ -29,20 +29,26 @@ Openings re-evaluate the classes (a second streaming pass), gather the
 opened positions, and rebuild the pruned bottom subtrees on the host,
 bit-identical to the resident tree's transcript.
 
-Every leaf hash, salt PRF, pair combine and ladder level is a launch of
-kernel B1 on the card.
+Classes go G at a time (`group_size_for`, the JAX package's rule): the G
+classes' scale rows in one doubling, one fold and one batched size-S
+transform over their rows, one salt PRF and one leaf hash over their G·S leaves,
+and log2(G) in-group pair levels, each one launch over all the level's
+sibling pairs, before the group's digests enter the accumulator at level
+log2(G) (`streamed_commit`). A group is a whole sibling subtree, so the
+tree is the one class-by-class accumulation gives. The second pass
+evaluates the classes G at a time too (`reopen_rows`). Every leaf hash,
+salt PRF, pair combine and ladder level is a launch of kernel B1 on the
+card.
 
 The counterpart of the JAX package's `protocol/stream.py`, with the same
-names. What that module does for its compiler and has no counterpart here:
-classes are not grouped into one dispatch (`group_size_for` amortised a
-per-dispatch cost of a remote backend; torch launches each op as it goes,
-so a group would only hold more block values live) though
-`StreamAccumulator.add` keeps its `level` argument for a caller that
-reduces several classes first; the NTT pack and the salt key are plain
-arguments, not runtime inputs kept out of an exported graph; ω^b is a
-slice of a device table, not a `dynamic_slice`; the leaf indices of a class
-are an `arange`, not an in-graph iota. Digests are (n, 8) int64 words, not
-lo/hi u32 planes.
+names and the same dispatch plan: a group of the JAX package is one
+compiled dispatch, here it is the same few kernel launches at G times the
+batch (B/G transforms a pass, not B). What that module does for its
+compiler and has no counterpart here: the NTT pack and the salt key are
+plain arguments, not runtime inputs kept out of an exported graph; ω^b is
+a slice of a device table, not a `dynamic_slice`; the leaf indices of a
+group are an `arange`, not an in-graph iota. Digests are (n, 8) int64
+words, not lo/hi u32 planes.
 """
 
 from __future__ import annotations
@@ -84,17 +90,31 @@ def fold_mod(coeffs, S: int):
     return acc
 
 
-def block_values(groups: Sequence, wb, scale_len: int, pack_S, S: int):
-    """Evaluate offset-prescaled coefficient groups on strided class b.
+def group_values(groups: Sequence, wbs, scale_len: int, pack_S, S: int):
+    """Evaluate offset-prescaled coefficient groups on G consecutive strided
+    classes b0 .. b0+G-1.
 
     groups: (rows_g, d_g) int64 tensors (c_k·offset^k, the prescaling of
-    `lde_coefficients_unpadded`). wb: (1,) tensor = ω^b. pack_S: the size-S
-    tables of `make_stream_plan`. Returns the (Σ rows_g, S) values, groups
-    concatenated, in position order q = 0..S-1 (leaf index b + B·q)."""
-    one = torch.ones((1,), dtype=torch.int64, device=wb.device)
-    scale = f.geometric_rows(one, wb, scale_len)[0]  # ω^{bk}
-    folded = [fold_mod(f.mul(g, scale[: g.shape[1]]), S) for g in groups]
-    return kn.forward_ntt(torch.cat(folded, dim=0), pack_S)
+    `lde_coefficients_unpadded`). wbs: (G,) tensor of the classes' ω^b.
+    pack_S: the size-S tables of `make_stream_plan`. Returns the
+    (G, Σ rows_g, S) values, class j's block at [j], groups concatenated,
+    in position order q = 0..S-1 (leaf index b0 + j + B·q)."""
+    G = int(wbs.shape[0])
+    ones = torch.ones((G,), dtype=torch.int64, device=wbs.device)
+    scale = f.geometric_rows(ones, wbs, scale_len)  # (G, scale_len): ω^{bk}
+    folded = []
+    for g in groups:
+        rows, d = int(g.shape[0]), int(g.shape[1])
+        scaled = f.mul(g, scale[:, None, :d])  # (G, rows, d)
+        folded.append(
+            fold_mod(scaled.reshape(G * rows, d), S).reshape(G, rows, S))
+    return kn.forward_ntt(torch.cat(folded, dim=1), pack_S)
+
+
+def block_values(groups: Sequence, wb, scale_len: int, pack_S, S: int):
+    """`group_values` of one class b: wb is the (1,) tensor ω^b; returns the
+    (Σ rows_g, S) values."""
+    return group_values(groups, wb, scale_len, pack_S, S)[0]
 
 
 class StreamAccumulator:
@@ -231,35 +251,62 @@ def salt_words_host(seed_bytes: bytes, indices) -> np.ndarray:
     )
 
 
+def group_size_for(B: int, S: int, group_env: Optional[int] = None) -> int:
+    """Classes a dispatch, the JAX package's rule: double while the group
+    stays under B and 8 classes and the last doubling started from at most
+    2^23 positions; `group_env` (a plan's "group") overrides it, capped at
+    B."""
+    if group_env:
+        return min(group_env, B)
+    g = 1
+    while g < B and g < 8 and g * S <= (1 << 23):
+        g *= 2
+    return g
+
+
 def _class_roots(plan, device):
     """(B,) tensor of ω^b, the per-class scale ratios."""
     return f.powers(plan["omega"], plan["B"], device)
 
 
 def streamed_commit(groups, salt_key: Optional[bytes], plan):
-    """First streaming pass: evaluate, hash and accumulate every class.
+    """First streaming pass: evaluate, hash and accumulate every class, G
+    consecutive classes at a time (`group_size_for`).
 
     groups: offset-prescaled coefficient groups (device tensors). plan:
     `make_stream_plan`'s. The zip order is the group-concatenated row order:
-    leaf row b + B·q is values[:, q] of class b. Returns a
-    Streamed[Salted]Merkle."""
+    leaf row b + B·q is values[:, q] of class b. A group's G·S leaves are
+    hashed class-major (row j·S + q is leaf b0 + j + B·q) and pair-reduced
+    log2(G) levels, the sibling classes (2t, 2t+1) of a level in one
+    launch, to the level-log2(G) node at each position q, over leaves
+    q·B + b0 .. q·B + b0 + G - 1. Returns a Streamed[Salted]Merkle."""
     N, B, S = plan["N"], plan["B"], plan["S"]
     dev = groups[0].device
     scale_len = max(int(g.shape[1]) for g in groups)
     salted = salt_key is not None
+    G = group_size_for(B, S, plan.get("group"))
+    levels = (G - 1).bit_length()
     if salted:
         key = salt_key_words(salt_key, dev)
-        biota = torch.arange(S, dtype=torch.int64, device=dev) * B
+        # the leaf indices of a group at b0 = 0, class-major
+        gidx = (torch.arange(S, dtype=torch.int64, device=dev)[None, :] * B
+                + torch.arange(G, dtype=torch.int64, device=dev)[:, None])
+        gidx = gidx.reshape(G * S)
     wbs = _class_roots(plan, dev)
     acc = StreamAccumulator()
-    for b in range(B):
-        vals = block_values(groups, wbs[b : b + 1], scale_len,
+    for b0 in range(0, B, G):
+        vals = group_values(groups, wbs[b0 : b0 + G], scale_len,
                             plan["pack_S"], S)
         salts = (
-            salt_words_device(key, S, indices=biota + b) if salted else None
+            salt_words_device(key, G * S, indices=gidx + b0).view(G, S, 3)
+            if salted else None
         )
-        acc.add(leaf_digests(vals.T, salts))
+        digests = leaf_digests(vals.transpose(1, 2), salts).view(G, S, 8)
         del vals, salts
+        for _ in range(levels):
+            pairs = digests.view(-1, 2, S, 8)
+            digests = B2.merkle_parents_pair(pairs[:, 0], pairs[:, 1])
+        acc.add(digests[0], level=levels)
     lvl, top = acc.finish()
     assert lvl == (B - 1).bit_length()
     if salted:
@@ -269,22 +316,24 @@ def streamed_commit(groups, salt_key: Optional[bytes], plan):
 
 def reopen_rows(groups, plan):
     """Second streaming pass factory: returns rows_for_positions(positions)
-    for `StreamedMerkle.resolve`. It re-evaluates every class, gathers only
-    the requested positions, and brings them to the host in one copy."""
+    for `StreamedMerkle.resolve`. It re-evaluates the classes G at a time,
+    gathers only the requested positions, and brings them to the host in
+    one copy."""
     B, S = plan["B"], plan["S"]
     dev = groups[0].device
     scale_len = max(int(g.shape[1]) for g in groups)
+    G = group_size_for(B, S, plan.get("group"))
     wbs = _class_roots(plan, dev)
 
     def rows_for_positions(positions):
         pos = torch.tensor(list(positions), dtype=torch.int64, device=dev)
-        per_class = []
-        for b in range(B):
-            vals = block_values(groups, wbs[b : b + 1], scale_len,
+        pieces = []
+        for b0 in range(0, B, G):
+            vals = group_values(groups, wbs[b0 : b0 + G], scale_len,
                                 plan["pack_S"], S)
-            per_class.append(vals.index_select(1, pos).T)  # (Q, k)
+            pieces.append(vals.index_select(2, pos).permute(2, 0, 1))
             del vals
-        return tensor_to_u64(torch.stack(per_class, dim=1))  # (Q, B, k)
+        return tensor_to_u64(torch.cat(pieces, dim=1))  # (Q, B, k)
 
     return rows_for_positions
 

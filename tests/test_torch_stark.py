@@ -141,6 +141,8 @@ def test_streamed_proof_bytes_equal_jax_and_resident(key, backend):
     m = tb.last_metrics
     assert (m["stream_classes"], m["stream_block"]) == (
         4, tb.fri.domain.length // 4)
+    # the JAX rule groups all 4 classes of a block this small
+    assert m["stream_group"] == 4
     assert m["ntt_path"] == (
         "four-step-plain" if backend == "mxu" else "u64-torch")
     assert tb._lde_packs()["fwd"] is None, "a streamed prove needs no N pack"
@@ -149,6 +151,20 @@ def test_streamed_proof_bytes_equal_jax_and_resident(key, backend):
                   "reopen (streamed 2nd pass)"):
         assert stage in m["stages_s"], stage
     assert tb0.last_metrics["stream_classes"] is None
+
+
+@pytest.mark.parametrize("backend", ["auto", "mxu"])
+@pytest.mark.parametrize("group", [1, 2])
+def test_streamed_proof_bytes_at_a_forced_group_size(group, backend):
+    """A cached plan carrying "group" (as the JAX package reads it) sets
+    the classes a dispatch of both commit passes and the reopen; the bytes
+    stay the JAX proof's."""
+    _, pj, _, _ = _proofs("io11")
+    make, args = _setup("io11")
+    tb = make(TP, device="cpu", config={**STREAM, "ntt_backend": backend})
+    tb._stream_plan()["group"] = group
+    assert tb.prove(*args) == pj
+    assert tb.last_metrics["stream_group"] == group
 
 
 @pytest.mark.parametrize("key,backend", STREAM_CASES)

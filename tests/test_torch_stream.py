@@ -1,7 +1,8 @@
 """The port's streamed (strided-class) commitments against the JAX
 package's `protocol/stream.py` (run with xp=np) and against the port's own
-resident device trees: folds, class values, roots, openings, rows, salts.
-Inputs come from a numpy seed; every comparison is exact (integers)."""
+resident device trees: folds, class values, roots, openings, rows, salts,
+at every group size of classes a dispatch. Inputs come from a numpy seed;
+every comparison is exact (integers)."""
 
 import numpy as np
 import pytest
@@ -109,13 +110,16 @@ def _trees(B, salted, kernel_ntt):
     key = KEY if salted else None
     jax_tree = jstream.streamed_commit(gj, key, plan_j, np)
     streamed = ts.streamed_commit(gt, key, plan_t)
+    return (gj, gt, plan_j, plan_t, jax_tree, streamed,
+            _resident(zipped, salted))
+
+
+def _resident(zipped, salted):
     rows = u64_to_tensor(zipped)
     if salted:
         salts = salt_words_device(salt_key_words(KEY), zipped.shape[0])
-        resident = DeviceSaltedMerkle(rows, salts, cut=2)
-    else:
-        resident = DeviceMerkle(rows, cut=2)
-    return gj, gt, plan_j, plan_t, jax_tree, streamed, resident
+        return DeviceSaltedMerkle(rows, salts, cut=2)
+    return DeviceMerkle(rows, cut=2)
 
 
 @pytest.mark.parametrize("B,salted,kernel_ntt", CASES)
@@ -285,3 +289,134 @@ def test_stream_plan_root_and_sizes():
                                               dtype=np.uint64))
         want = nt.ntt(x, jf.h_pow(omega, B))
         assert torch.equal(kn.forward_ntt(x, plan["pack_S"]), want)
+
+
+# -- classes grouped into one dispatch (`group_size_for`) -------------------
+
+PROVE_SHAPES = [((32, 1 << 17), 8), ((2, 1 << 21), 2), ((32, 1 << 21), 8)]
+
+
+@pytest.mark.parametrize("env", [None, 0, 1, 2, 3, 4, 8, 16, 64])
+def test_group_size_for_matches_jax(env):
+    for B in (1, 2, 4, 8, 16, 32, 64, 128):
+        for logS in (4, 10, 17, 20, 21, 22, 23, 24):
+            want = jstream.group_size_for(B, 1 << logS, env)
+            assert ts.group_size_for(B, 1 << logS, env) == want, (B, logS)
+
+
+def test_group_size_for_at_the_prove_shapes():
+    """FRI 2^22 in 32 and in 2 classes, FRI 2^26 in 32: the check comes
+    before the doubling, so a group of 8 classes of 2^21 positions."""
+    for (B, S), G in PROVE_SHAPES:
+        assert ts.group_size_for(B, S) == jstream.group_size_for(B, S) == G
+
+
+@pytest.mark.parametrize("kernel_ntt", [False, True], ids=["u64", "mxu"])
+@pytest.mark.parametrize("N,B,b0,G", [(2048, 8, 0, 8), (2048, 8, 2, 2),
+                                      (2048, 8, 4, 4), (2048, 8, 5, 3),
+                                      (1 << 16, 4, 0, 4)])
+def test_group_values_stack_the_class_values(N, B, b0, G, kernel_ntt):
+    """G classes in one evaluation equal G evaluations of one class and
+    the classes of the full codeword; at N = 2^16 the class transform is
+    the composed four-step one on the kernel plan."""
+    _, gt, zipped, _, plan_t = _setup(N=N, B=B, kernel_ntt=kernel_ntt)
+    S = plan_t["S"]
+    scale_len = max(int(g.shape[1]) for g in gt)
+    wbs = ts._class_roots(plan_t, "cpu")
+    got = ts.group_values(gt, wbs[b0 : b0 + G], scale_len, plan_t["pack_S"],
+                          S)
+    assert tuple(got.shape) == (G, zipped.shape[1], S)
+    for j in range(G):
+        one = ts.block_values(gt, wbs[b0 + j : b0 + j + 1], scale_len,
+                              plan_t["pack_S"], S)
+        assert torch.equal(got[j], one)
+        assert np.array_equal(tensor_to_u64(got[j]).T, zipped[b0 + j :: B])
+
+
+GROUP_CASES = [
+    pytest.param(G, salted, kernel_ntt,
+                 id=f"G{G}-{'salted' if salted else 'plain'}-"
+                    f"{'mxu' if kernel_ntt else 'u64'}")
+    for G in (1, 2, 4, 8) for salted in (False, True)
+    for kernel_ntt in (False, True)
+]
+
+
+@pytest.mark.parametrize("G,salted,kernel_ntt", GROUP_CASES)
+def test_grouped_tree_matches_jax_ungrouped_and_resident(G, salted,
+                                                         kernel_ntt):
+    """plan["group"] = G in both packages (B = 8): roots, the level-log2(B)
+    digests, opened rows, salts and paths equal the JAX package's, the
+    port's one class a dispatch and the resident tree's."""
+    gj, gt, zipped, plan_j, plan_t = _setup(B=8, kernel_ntt=kernel_ntt)
+    resident = _resident(zipped, salted)
+    key = KEY if salted else None
+    plan_j["group"] = plan_t["group"] = G
+    jax_tree = jstream.streamed_commit(gj, key, plan_j, np)
+    grouped = ts.streamed_commit(gt, key, plan_t)
+    single = ts.streamed_commit(gt, key, {**plan_t, "group": 1})
+    assert grouped.root() == jax_tree.root() == single.root() == resident.root()
+    lo, hi = jax_tree.levels[0]
+    assert torch.equal(grouped.levels[0], digest_planes_to_words(lo, hi))
+    assert torch.equal(grouped.levels[0], single.levels[0])
+
+    idx = SALTED_IDX if salted else PLAIN_IDX
+    grouped.resolve(idx, ts.reopen_rows(gt, plan_t))
+    single.resolve(idx, ts.reopen_rows(gt, {**plan_t, "group": 1}))
+    jax_tree.resolve(idx, jstream.reopen_rows(gj, plan_j, np))
+    for tree in (grouped, single, jax_tree, resident):
+        tree.prefetch(idx)
+    for i in idx:
+        assert grouped.open(i) == jax_tree.open(i) == single.open(i)
+        assert grouped.open(i) == resident.open(i)
+        assert np.array_equal(grouped.row_at(i), jax_tree.row_at(i))
+        assert np.array_equal(grouped.row_at(i), resident.row_at(i))
+        if salted:
+            assert grouped.salt_at(i) == jax_tree.salt_at(i)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_reopen_rows_match_jax_at_every_group(G):
+    """The (Q, B, k) rows of the second pass, position for position."""
+    gj, gt, zipped, plan_j, plan_t = _setup(B=8)
+    plan_j["group"] = plan_t["group"] = G
+    positions = [0, 3, 17, 255]
+    got = ts.reopen_rows(gt, plan_t)(positions)
+    want = jstream.reopen_rows(gj, plan_j, np)(positions)
+    assert got.shape == (4, 8, zipped.shape[1])
+    assert np.array_equal(got, want)
+    for j, q in enumerate(positions):
+        assert np.array_equal(got[j], zipped[q * 8 : (q + 1) * 8])
+
+
+@pytest.mark.parametrize("salted", [False, True], ids=["plain", "salted"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_dispatches_per_group(G, salted, monkeypatch):
+    """B/G class transforms a pass; a group hashes its leaves once, its
+    salts once (salted) and each of its log2(G) pair levels once; then
+    B/G - 1 accumulator combines and the ladder."""
+    B = 8
+    _, gt, _, _, plan_t = _setup(B=B)
+    plan_t["group"] = G
+    calls = {"ntt": 0, "hash": 0}
+    ntt, hash_words = kn.forward_ntt, B2.blake2b_words
+
+    def count_ntt(*a, **kw):
+        calls["ntt"] += 1
+        return ntt(*a, **kw)
+
+    def count_hash(*a, **kw):
+        calls["hash"] += 1
+        return hash_words(*a, **kw)
+
+    monkeypatch.setattr(kn, "forward_ntt", count_ntt)
+    monkeypatch.setattr(B2, "blake2b_words", count_hash)
+    tree = ts.streamed_commit(gt, KEY if salted else None, plan_t)
+    log_g = G.bit_length() - 1
+    per_group = (2 if salted else 1) + log_g
+    ladder = len(tree.levels) - 1
+    assert calls == {"ntt": B // G,
+                     "hash": B // G * per_group + (B // G - 1) + ladder}
+    calls.update(ntt=0, hash=0)
+    ts.reopen_rows(gt, plan_t)([1, 2])
+    assert calls == {"ntt": B // G, "hash": 0}
