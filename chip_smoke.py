@@ -9,8 +9,8 @@ line each; any failure raises and exits non-zero:
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: compiles every kernel source (csrc/*.cu) with nvcc, one
-     process each, all started together, and the host runtime's two C++
-     sources (native/*.cpp) with g++; native_host: the C++ trace recorder
+     process each, all started together, and the host runtime's C++
+     sources (native/*.cpp, F4's host harness among them) with g++; native_host: the C++ trace recorder
      and the python one on the 2^16-cycle counter, arrays equal and the C++
      one at least 10x faster, the C++ one alone on the 2^20-cycle counter,
      and host Merkle trees of 2^14 and 2^16 leaves of 104 bytes from the
@@ -42,7 +42,15 @@ line each; any failure raises and exits non-zero:
      S = 2^21, at ragged n (2^17 + 37, 1,000), with one term, and on a
      group of edge weights, ratios and starts; each also at every term
      split, with the card's launch plan (blocks an SM holds, registers),
-     which must equal `field_kernels.acc_geometry`;
+     which must equal `field_kernels.acc_geometry`; quotient_kernel: F4
+     (csrc/quotients.cu, each table's quotients in one launch) against
+     the op-by-op stack `_table_quotient_stack_plain`, exactly, for all
+     five tables, on the 2^15-cycle counter's own LDE columns, challenges,
+     terminals and zerofier inverses (recorded from one prove): resident
+     at N = 2^21, as a streamed class (class 1 of 16, S = 2^17, row shift
+     ud / 16) and with the next row as columns rolled by the caller (rot
+     0), each launched once and counted, timed beside the plain stack and
+     bounded by `quotient_work`;
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
      give the same bytes, and both must verify; the same again with
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
@@ -51,10 +59,14 @@ line each; any failure raises and exits non-zero:
      the largest resident one) on the default NTT path (full_prove) and
      with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
-     launch counts (B1, B2, B3 and F1, F2, F3; F1-F3 above 0 on both
-     paths, as on every other prove of the card), stage times, peak device memory at each stage mark and
+     launch counts (B1, B2, B3 and F1-F4; F1-F3 above 0 and F4 exactly 5
+     a quotient evaluation on every prove of the card: one resident, one a
+     class streamed), stage times, peak device memory at each stage mark and
      the prover's NTT butterfly, hashed leaf and extended row counts and
      rates (so too each stream_prove below); all proofs byte-identical;
+     and in the same turns the default path with the quotient stacks op by
+     op on F1/F2 (full_prove_plain_quotients, F4's baseline: no F4, and
+     exactly the F1/F2 launches of `quotient_dispatches` more);
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
      stream_bytes: the N=16384 program with `stream_min=1,
      stream_classes=4` on cuda and on cpu, on both NTT paths, every proof
@@ -79,7 +91,9 @@ line each; any failure raises and exits non-zero:
      mxu path (4B/G + 2B transforms), B1 exactly as often as the resident
      prove's count gives (`streamed_b1`), with launch counts, the group,
      the merkle and reopen times, stage times and peak memory per prove
-     beside the ungrouped prove's (`BASELINE_STREAM`);
+     beside the ungrouped prove's (`BASELINE_STREAM`), then the 32-class
+     default prove again with the quotient stacks op by op (F4's
+     baseline, as in step 6);
   8. the other paths of the main path's kernels: ref_codec_bytes: the
      N=16384 program with `codec="ref"` (host trees over pickled leaf
      objects; B1 still runs the salt and randomizer PRFs), the same bytes on
@@ -106,8 +120,9 @@ line each; any failure raises and exits non-zero:
      launches and the time of the torch copies left around them;
      mesh_kernels: on each of 2 ranks, B2 in the two strided forms of the
      distributed transform's local DFTs (19 and 27 rows), B3 with the rank's
-     offset tables, and B1 at the block's leaf, salt and tree-level sizes,
-     each against its plain version, exactly; mesh_bytes: the N=16384
+     offset tables, B1 at the block's leaf, salt and tree-level sizes, and
+     F4 on the block with the next row rolled across the ranks, each
+     against its plain version, exactly; mesh_bytes: the N=16384
      program with `mesh_shape` 2 and 4, on cuda and on cpu, default and mxu, every rank's proof equal to step
      5's single-device proof, one verified; mesh_prove: the 2^15-cycle
      counter (FRI 2^21) on 2 ranks, default and mxu, a warm-up and a timed
@@ -118,7 +133,8 @@ line each; any failure raises and exits non-zero:
   10. the card's name and power limit, then the kernels line;
   11. last line: {"ok": true, "device": {...}}.
 
-`--field-kernels` runs only the field_kernels phase after the build.
+`--field-kernels` runs only the field_kernels and quotient_kernel phases
+after the build.
 `--ref-codec` runs step 5 and then only step 8, and stops before the
 kernels line. `--mesh [RANKS]` leaves out the kernel checks of steps 3 and
 4 and all of steps 7 and 8, runs mesh_prove on RANKS ranks (2 by default) and stops before the
@@ -132,6 +148,9 @@ for the streamed prover: after the build it proves a counter of 2^K cycles
 (FRI 2^(K+6)) with 32 classes on both NTT paths, holds the two proofs equal
 and verified and the B2/B3 launches to the class transforms, prints one
 stream_prove line each and stops.
+
+Every bound is the larger of the bytes over HBM bandwidth and each
+integer pipe's fewest instructions over its issue rate (`bound`, `Ops`).
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -151,29 +170,62 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bandwidth,
-# and the SM's instruction issue ceiling for 32-bit integer work = 132 SMs x
-# 4 schedulers x 32 lanes x 1.98 GHz boost. nvcc spreads integer adds over
-# the INT32 pipe and the FMA pipe (IMAD), so the INT32 pipe's 64 lanes/clock
-# alone is no lower bound: the kernel measured faster than it.
+# and the issue rate of one 32-bit integer pipe = 132 SMs x 64 lanes x 1.98
+# GHz boost. On sm_90 the integer ALU pipe (the IADD3, LOP3/SHF and
+# ISETP/SEL families of `sass_counts`) issues 64 lanes a clock per SM, and
+# the IMAD families (the wide multiplies, IMAD.WIDE and IMAD.HI) issue 64
+# more on the FMA pipe: a kernel's operations take at least the larger of
+# the two pipes' counts over this rate (`bound`). Counting every 32-bit
+# instruction at 128 lanes would halve the time of an ALU-only kernel such
+# as B1, and is no lower bound.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
+PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+class Ops:
+    """Fewest 32-bit integer instructions of some work, by the pipe that
+    issues them: `alu` (adds, logic, shifts, compares, selects) and `fma`
+    (the IMAD-family wide multiplies). Adds and scales like a number."""
+
+    __slots__ = ("alu", "fma")
+
+    def __init__(self, alu=0, fma=0):
+        self.alu, self.fma = alu, fma
+
+    def __add__(self, other):
+        if isinstance(other, int) and other == 0:  # sum() starts from 0
+            return self
+        return Ops(self.alu + other.alu, self.fma + other.fma)
+
+    __radd__ = __add__
+
+    def __mul__(self, k):
+        return Ops(self.alu * k, self.fma * k)
+
+    __rmul__ = __mul__
+
+    def as_dict(self):
+        return {"alu": self.alu, "fma": self.fma}
+
+
 # fewest 32-bit integer instructions per BLAKE2b compression: 96
 # G-functions of 4 three-input 64-bit adds (2 IADD3 each), 4 xors (2 LOP3
 # each) and 3 funnel rotates (2 SHF each; the rotate by 32 is a free half
-# swap), plus the 8-word feed-forward h ^= v ^ v' (2 LOP3 each)
-OPS_PER_COMPRESSION = 96 * (4 * 2 + 4 * 2 + 3 * 2) + 8 * 2
+# swap), plus the 8-word feed-forward h ^= v ^ v' (2 LOP3 each): all ALU
+OPS_PER_COMPRESSION = Ops(96 * (4 * 2 + 4 * 2 + 3 * 2) + 8 * 2)
 # fewest 32-bit integer instructions per Goldilocks operation of
-# csrc/ntt.cu: a multiply is the 128-bit product (4 wide 32x32 partial
-# products, 4 carry adds) and its reduction (subtract hh with borrow 2,
-# hl*(2^32-1) as shift-subtract 2, add with carry 2, two conditional
-# corrections 2 each) = 18; an add is a 64-bit add 2, its wrap
-# correction 2 and the compare-subtract of p 2 = 6; a sub is 2 + 2 = 4.
-# A multiply by a power of two needs no wide product (it is a shift), so
-# only its reduction counts, 10; a multiply by 1 counts nothing
-GL_MUL_OPS = 18
-GL_POW2_MUL_OPS = 10
-GL_ADD_OPS = 6
-GL_SUB_OPS = 4
+# csrc/goldilocks.cuh: a multiply is the 128-bit product (4 wide 32x32
+# partial products on the FMA pipe, 4 carry adds) and its reduction
+# (subtract hh with borrow 2, hl*(2^32-1) as shift-subtract 2, add with
+# carry 2, two conditional corrections 2 each) = 14 ALU + 4 FMA; an add is
+# a 64-bit add 2, its wrap correction 2 and the compare-subtract of p 2 =
+# 6; a sub is 2 + 2 = 4 (a negation is a sub). A multiply by a power of
+# two needs no wide product (it is a shift), so only its reduction counts,
+# 10; a multiply by 1 counts nothing
+GL_MUL_OPS = Ops(14, 4)
+GL_POW2_MUL_OPS = Ops(10)
+GL_ADD_OPS = Ops(6)
+GL_SUB_OPS = Ops(4)
 
 # trace cycles of the full-size prove, and the message count of the B1
 # checks: the FRI domain is 64x the padded trace, 2^21
@@ -261,6 +313,9 @@ def sass_counts(library: str):
         name = chunk.split("\n", 1)[0].strip()
         short = next((k for k in ("blake2b_words_kernel", "subntt_kernel",
                                   "twiddle_outer_kernel") if k in name), name)
+        table = re.search(r"Quotients([A-Z][a-z]+)", name)
+        if "quotients_kernel" in name and table:
+            short = f"quotients_kernel<{table.group(1)}>"
         full = re.findall(
             r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
             chunk, flags=re.M)
@@ -376,14 +431,8 @@ def check_b1():
             )
         ms = cuda_ms(lambda: B.blake2b_words(words, msg_len), reps=20)
         plain_ms = cuda_ms(lambda: B.blake2b_words_plain(words, msg_len), reps=3)
-        blocks = W // 16
-        ops = n * blocks * OPS_PER_COMPRESSION
-        nbytes = (W * 8 + 64) * n
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        bound_by = (
-            "operations" if ops / INT32_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
-            else "bytes"
-        )
+        bound_ms, bound_by = bound((W * 8 + 64) * n,
+                                   n * (W // 16) * OPS_PER_COMPRESSION)
         row = {
             "n": n, "W": W, "msg_len": msg_len, "max_abs_err": err,
             "hashlib_rows": len(rows), "ms": ms, "plain_ms": plain_ms,
@@ -395,11 +444,11 @@ def check_b1():
     return results
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: Ops):
     """(bound ms, what bounds it): the larger of the bytes over HBM
-    bandwidth and the 32-bit integer instructions over the issue ceiling."""
+    bandwidth and each integer pipe's instructions over its issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = max(ops.alu, ops.fma) / PIPE_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -411,7 +460,7 @@ def subntt_ops(m: int) -> int:
     a reduction only when the twiddle is a 64th root of unity (the field's
     are the powers of 8 = 2^3, so the product is a shift), and a full
     multiply otherwise."""
-    ops, half = 0, 1
+    ops, half = Ops(), 1
     while half < m:
         # j < h with w_{2h}^j a 64th root of unity: 64 j a multiple of 2h
         pow2 = half if 2 * half <= 64 else 32
@@ -577,7 +626,7 @@ def check_ntt_kernels():
         u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=5)
         # the least the transform can move: no 2^21-point row fits an SM,
         # so the block of rows is read and written twice
-        bound_ms, _ = bound(2 * 16 * k * n, 0)
+        bound_ms, _ = bound(2 * 16 * k * n, Ops())
         emit("ntt_full", stage=stage, rows=k, n=n, r=plan.r, c=plan.c,
              max_abs_err=err, kernel_ms=kernel_ms, u64_ms=u64_ms,
              bound_ms=bound_ms)
@@ -609,11 +658,11 @@ XF_MUL_OPS = 9 * GL_MUL_OPS + 6 * GL_ADD_OPS + 2 * GL_SUB_OPS
 # odd sums (the add comes with the multiply) and 3 carry adds. A position,
 # once a launch: each of the 3 sums' reduction (two 128-bit ones, 10 each,
 # two subs of a top word and their add) and the 3 adds into acc
-ACC_MAC_OPS = 4 + 3
-ACC_REDUCE_OPS = 2 * 10 + 2 * GL_SUB_OPS + GL_ADD_OPS
+ACC_MAC_OPS = Ops(3, 4)
+ACC_REDUCE_OPS = Ops(2 * 10) + 2 * GL_SUB_OPS + GL_ADD_OPS
 ACC_TERM_OPS = {False: GL_MUL_OPS + 6 * ACC_MAC_OPS,
                 True: 3 * GL_MUL_OPS + 3 * GL_ADD_OPS + GL_ADD_OPS
-                + GL_SUB_OPS + 2 * 2 + 9 * ACC_MAC_OPS}
+                + GL_SUB_OPS + Ops(2 * 2) + 9 * ACC_MAC_OPS}
 ACC_POSITION_OPS = 3 * ACC_REDUCE_OPS + 3 * GL_ADD_OPS
 # F3 before its redesign, at the shapes PERF.md holds its times for
 # (NVIDIA H100 80GB HBM3, 700.00 W; `graph_ms`): {group: ms}
@@ -882,6 +931,170 @@ def f3_case(stark, parts, ext, length, seed, time_plain, weights=None,
     return row
 
 
+# ---------------------------------------------------------------------------
+# F4: each table's quotients in one launch (csrc/quotients.cu)
+# ---------------------------------------------------------------------------
+
+# the streamed class the quotient_kernel phase cuts from the resident LDE:
+# class 1 of 16 at FRI 2^21, S = 2^17 positions, as a 32-class prove at FRI
+# 2^22 hands F4 its classes
+QUOTIENT_CLASSES = 16
+
+
+def quotient_work(tables, n: int):
+    """(bytes, Ops) of F4 on `tables` (table objects of a stark) at n
+    positions, from each table's lowered program (`quotient_kernels.
+    row_counts`): each column and zerofier word read once, each output
+    word written once, and the Goldilocks multiplies, adds and subs of a
+    position (the values that depend on no column, once a block, left
+    out)."""
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
+
+    nbytes, ops = 0, Ops()
+    for t in tables:
+        c = QK.row_counts(QK.lower(QK.program(t)))
+        nbytes += 8 * (c["read"] + c["written"]) * n
+        ops += (c["mul"] * GL_MUL_OPS + c["add"] * GL_ADD_OPS
+                + c["sub"] * GL_SUB_OPS) * n
+    return nbytes, ops
+
+
+def quotient_dispatches(bfs, evaluations: int = 1):
+    """{"f1": F1 launches, "f2": F2 launches} that `evaluations` op-by-op
+    evaluations of the five tables' quotient stacks make (`interp.
+    dispatches` of each table's program): the launches F4 replaces."""
+    from stark_brainfuck_tpu_torch.models.interp import dispatches
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
+
+    d = [dispatches(QK.program(t)) for t in bfs.tables]
+    return {"f1": evaluations * sum(x["add"] + x["sub"] + x["mul"] for x in d),
+            "f2": evaluations * sum(x["xmul"] + x["xmul_base"] for x in d)}
+
+
+def plain_quotients(bfs):
+    """bfs with its quotient stacks evaluated op by op (F1/F2), the form
+    F4 replaced: the baseline of the stage_c comparisons."""
+    bfs._table_quotient_stack = bfs._table_quotient_stack_plain
+    return bfs
+
+
+def quotient_kernel(src, smi):
+    """F4 against `_table_quotient_stack_plain` (`Table.quotients` op by op
+    on F1/F2) on the card, exactly, for all five tables, on the 2^15-cycle
+    counter's own operands: one prove records every `_table_quotient_stack`
+    call (the LDE's column views, the challenges and terminals, the
+    zerofier inverses). Three forms: resident at N = 2^21 (the next row at
+    the unit distance), a streamed class (class 1 of QUOTIENT_CLASSES, S =
+    N / B, the row shift ud / B, in the streamed prover's layouts), and the
+    next row as columns rolled by the caller with rot 0 (the mesh's form;
+    the ranks run it in mesh_kernels). Each table's launch is counted (one
+    F4, no F1/F2), timed (`graph_ms`, cold L2; `call_ms` CUDA events from
+    the host) beside the plain stack (CUDA events: it allocates host
+    constants, which a graph cannot capture), with its bound
+    (`quotient_work`); an "all five" row per form sums one evaluation.
+    Returns the rows."""
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
+
+    bfs, args = make_stark(src, 0, "cuda")
+    calls = []
+    inner = bfs._table_quotient_stack
+
+    def record(ti, *operands, **kw):
+        calls.append((ti, operands))
+        return inner(ti, *operands, **kw)
+
+    bfs._table_quotient_stack = record
+    proof = bfs.prove(*args)
+    del bfs._table_quotient_stack
+    assert bfs.verify(proof), bfs.last_rejection
+    assert [c[0] for c in calls] == list(range(5)), [c[0] for c in calls]
+    N = bfs.fri.domain.length
+    B = QUOTIENT_CLASSES
+
+    def cls(x):
+        """Class 1's positions of a column group or a zerofier inverse,
+        in the streamed prover's layouts: base columns as contiguous rows
+        and extension columns as the `movedim` view of contiguous (n_ext,
+        3, S) rows (`block_values`), the zerofier inverses as the strided
+        gather `_stream_zinv_block` makes."""
+        if x.dim() == 2:
+            return x[:, 1::B].contiguous()
+        if x.dim() == 3:
+            return x[:, 1::B].movedim(-1, 1).contiguous().movedim(1, -1)
+        return x[1::B] if x.dim() else x
+
+    forms = {}
+    for ti, (base, ext, ch, tm, zinv) in calls:
+        t = bfs.tables[ti]
+        ud = t.unit_distance(N)
+        assert ud % B == 0, (t.name, ud)
+        rolled = (torch.roll(base, -ud, 1), torch.roll(ext, -ud, 1))
+        forms.setdefault("resident", []).append((
+            lambda ti=ti, o=(base, ext, ch, tm, zinv): bfs._table_quotient_stack(
+                ti, *o),
+            lambda ti=ti, o=(base, ext, ch, tm, zinv):
+                bfs._table_quotient_stack_plain(ti, *o), N, t))
+        zc = {k: cls(v) for k, v in zinv.items()}
+        forms.setdefault("streamed class", []).append((
+            lambda ti=ti, o=(cls(base), cls(ext), ch, tm, zc), u=ud // B:
+                bfs._table_quotient_stack(ti, *o, ud=u),
+            lambda ti=ti, o=(cls(base), cls(ext), ch, tm, zc), u=ud // B:
+                bfs._table_quotient_stack_plain(ti, *o, ud=u), N // B, t))
+        forms.setdefault("rolled next, rot 0", []).append((
+            lambda ti=ti, o=(base, ext, ch, tm, zinv), r=rolled:
+                QK.quotient_stack(ti, bfs._quotient_program(ti), *o, 0, *r),
+            lambda ti=ti, o=(base, ext, ch, tm, zinv):
+                bfs._table_quotient_stack_plain(ti, *o), N, t))
+    rows = []
+    for form, cases in forms.items():
+        for run, run_plain, n, t in cases:
+            reset_counts()
+            got = run()
+            counts = read_counts()
+            assert counts == {**{k: 0 for k in counts}, "f4": 1}, (
+                form, t.name, counts)
+            want = run_plain()
+            torch.cuda.synchronize()
+            assert got.shape == want.shape, (form, t.name, got.shape)
+            err = max_abs_err(got.reshape(-1, 1), want.reshape(-1, 1))
+            assert err == 0.0, f"F4 differs from the plain stack: {form}, {t.name}"
+            del got, want
+            nbytes, ops = quotient_work([t], n)
+            bound_ms, bound_by = bound(nbytes, ops)
+            row = {"kernel": "f4", "form": form, "table": t.name, "n": n,
+                   "quotients": len(QK.program(t).outputs),
+                   "max_abs_err": err, "ms": graph_ms(run),
+                   "plain_ms": cuda_ms(run_plain, reps=3),
+                   "call_ms": cuda_ms(run, reps=10),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": nbytes, "ops": ops.as_dict()}
+            emit("quotient_kernel", **row)
+            rows.append(row)
+        n = cases[0][2]
+        nbytes, ops = quotient_work(bfs.tables, n)
+        bound_ms, bound_by = bound(nbytes, ops)
+        every = [r for r in rows if r["form"] == form]
+
+        def all_five(fns):
+            for fn in fns:
+                fn()
+
+        row = {"kernel": "f4", "form": form, "table": "all five", "n": n,
+               "quotients": sum(r["quotients"] for r in every),
+               "max_abs_err": 0.0,
+               "ms": graph_ms(lambda: all_five([c[0] for c in cases])),
+               "plain_ms": cuda_ms(
+                   lambda: all_five([c[1] for c in cases]), reps=3),
+               "call_ms": cuda_ms(lambda: all_five([c[0] for c in cases]),
+                                  reps=10),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops.as_dict(), "nvidia_smi": smi}
+        emit("quotient_kernel", **row)
+        rows.append(row)
+    del calls, forms, bfs
+    return rows
+
+
 def b2_sweep():
     """Times B2's two four-step passes and the whole transform at the
     extension shape (27 rows of 2^21) under several tile shapes (the
@@ -1145,7 +1358,8 @@ def profile_prove(bfs, args, out_dir):
     field_s = {name: sum(e.self_device_time_total for e in events
                          if name in e.key) / 1e6
                for name in ("gl_binary_kernel", "xf_binary_kernel",
-                            "acc_group_kernel", "acc_powers_kernel")}
+                            "acc_group_kernel", "acc_powers_kernel",
+                            "quotients_kernel")}
     # the copies of torch.cat (CatArrayBatchedCopy kernels)
     cat_s = sum(e.self_device_time_total for e in events
                 if "CatArray" in e.key) / 1e6
@@ -1174,8 +1388,10 @@ def reset_counts():
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
     B.LAUNCHES = 0
+    QK.LAUNCHES_QUOTIENT = 0
     K.LAUNCHES_SUBNTT = 0
     K.LAUNCHES_TWIDDLE = 0
     FK.LAUNCHES_ELEMENTWISE = 0
@@ -1185,16 +1401,25 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches of B1, B2, B3 and F1, F2, F3 (and F3's power tables) since
-    the last reset_counts()."""
+    """Launches of B1, B2, B3 and F1-F4 (and F3's power tables) since the
+    last reset_counts()."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
     return {"b1": B.LAUNCHES, "b2": K.LAUNCHES_SUBNTT,
             "b3": K.LAUNCHES_TWIDDLE, "f1": FK.LAUNCHES_ELEMENTWISE,
             "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC,
-            "f3_powers": FK.LAUNCHES_ACC_POWERS}
+            "f3_powers": FK.LAUNCHES_ACC_POWERS,
+            "f4": QK.LAUNCHES_QUOTIENT}
+
+
+def check_f4(counts, evaluations: int, where):
+    """F4 launched once a table for each evaluation of the quotients (one a
+    resident prove, one a class streamed), and F1-F3 launched."""
+    assert counts["f4"] == 5 * evaluations, (where, evaluations, counts)
+    assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (where, counts)
 
 
 def b_counts(counts):
@@ -1257,11 +1482,12 @@ def streamed_b1(resident_b1: int, B: int, G: int) -> int:
 
 
 def stage_c(bfs, counts):
-    """A prove's F3 launches (and its power tables'), stage_c seconds and
-    peak device bytes at stage_c's mark."""
+    """A prove's F3 and F4 launches (and F3's power tables'), stage_c
+    seconds and peak device bytes at stage_c's mark."""
     m = bfs.last_metrics
     assert counts["f3_powers"] == counts["f3"], counts
-    return {"f3_launches": counts["f3"],
+    assert m["quotient_launches"] == counts["f4"], (m, counts)
+    return {"f3_launches": counts["f3"], "f4_launches": counts["f4"],
             "f3_power_launches": counts["f3_powers"],
             "stage_c_s": m["stages_s"].get(STAGE_C),
             "peak_bytes_at_stage_c": m.get("peak_bytes_at_mark", {}).get(
@@ -1269,19 +1495,25 @@ def stage_c(bfs, counts):
 
 
 def full_proves(src, smi):
-    """The full-size prove on the default and the mxu NTT path: a warm-up
-    prove and verify for each, then two timed proves each, in turns
-    (default, mxu, mxu, default) so the two are compared on the same card
-    in the same state. Launch counts are set to 0 just before each timed
-    prove and read just after it; stage times and peak bytes are kept per
-    prove. Every proof must equal the default path's warm-up bytes.
-    Returns ({path: (stark, args)}, {path: launch counts per prove}, the
-    proof)."""
-    paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"}}
+    """The full-size prove on the default and the mxu NTT path, and on the
+    default path with the quotient stacks op by op on F1/F2
+    (`plain_quotients`, the baseline of F4): a warm-up prove and verify for
+    each, then two timed proves each, in turns (default, mxu, plain, plain,
+    mxu, default) so they are compared on the same card in the same state.
+    Launch counts are set to 0 just before each timed prove and read just
+    after it; stage times and peak bytes are kept per prove. Every proof
+    must equal the default path's warm-up bytes; F4 launches 5 times a
+    prove and the plain baseline none, with exactly `quotient_dispatches`
+    more F1 and F2 launches. Returns ({path: (stark, args)}, {path: launch
+    counts per prove}, the proof)."""
+    paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"},
+             "full_prove_plain_quotients": {}}
     starks, warm, runs = {}, {}, {p: [] for p in paths}
     proof = None
     for phase, config in paths.items():
         bfs, args = make_stark(src, 0, "cuda", **config)
+        if phase == "full_prove_plain_quotients":
+            plain_quotients(bfs)
         t0 = time.time()
         got = bfs.prove(*args)
         warm[phase] = time.time() - t0
@@ -1289,8 +1521,9 @@ def full_proves(src, smi):
         proof = proof or got
         assert got == proof, f"{phase}: bytes differ from the default path"
         starks[phase] = (bfs, args)
-    for phase in ("full_prove", "full_prove_mxu", "full_prove_mxu",
-                  "full_prove"):
+    for phase in ("full_prove", "full_prove_mxu",
+                  "full_prove_plain_quotients", "full_prove_plain_quotients",
+                  "full_prove_mxu", "full_prove"):
         bfs, args = starks[phase]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1302,8 +1535,15 @@ def full_proves(src, smi):
         counts = read_counts()
         assert got == proof, f"{phase}: seeded proves differ"
         assert counts["b1"] > 0, f"{phase}: launched no B1 kernel"
-        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (
-            f"{phase}: a field kernel was not launched: {counts}")
+        if phase == "full_prove_plain_quotients":
+            f4_run = runs["full_prove"][0]["launches"]
+            moved = quotient_dispatches(bfs)
+            assert counts == {**f4_run, "f4": 0,
+                              "f1": f4_run["f1"] + moved["f1"],
+                              "f2": f4_run["f2"] + moved["f2"]}, (
+                counts, f4_run, moved)
+        else:
+            check_f4(counts, 1, phase)
         runs[phase].append({
             "prove_s": wall, "launches": counts, **stage_c(bfs, counts),
             "stages_s": bfs.last_metrics["stages_s"],
@@ -1315,13 +1555,16 @@ def full_proves(src, smi):
     for phase, (bfs, args) in starks.items():
         rs = runs[phase]
         cycles = int(args[0].shape[0])
+        extra = {}
+        if phase == "full_prove_plain_quotients":
+            extra = {"quotient_dispatches_replaced": quotient_dispatches(bfs)}
         emit(phase, target_cycles=1 << LOG2_CYCLES, trace_cycles=cycles,
              fri_domain=bfs.fri.domain.length,
              cycles_per_s=cycles / min(r["prove_s"] for r in rs),
              prove_s=[r["prove_s"] for r in rs], warmup_prove_s=warm[phase],
              ntt_path=bfs.last_metrics["ntt_path"], proof_bytes=len(proof),
              verified=True, identical_to_default=True, runs=rs,
-             baseline=BASELINE_FULL_PROVE, nvidia_smi=smi)
+             baseline=BASELINE_FULL_PROVE, nvidia_smi=smi, **extra)
     return (starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()},
             proof)
 
@@ -1338,6 +1581,7 @@ def bytes_across_devices(phase, src, want=None, **config):
     assert bfs_gpu.fri.domain.length >= bfs_gpu.config.device_commit_min
     assert proof_gpu == proof_cpu, f"{phase}: cuda and cpu proofs differ"
     assert want is None or proof_gpu == want, f"{phase}: bytes differ"
+    check_f4(counts, 1, phase)
     assert bfs_gpu.verify(proof_gpu) and bfs_cpu.verify(proof_cpu)
     assert counts["b1"] > 0, f"{phase}: device-commit prove launched no B1"
     emit(phase, fri_domain=bfs_gpu.fri.domain.length,
@@ -1375,6 +1619,7 @@ def stream_bytes(want):
         assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
             (class_transforms(4, 4), 0) if backend == "mxu" else (0, 0)
         ), counts
+        check_f4(counts, m["stream_classes"], "stream_bytes")
         emit("stream_bytes", ntt_backend=backend,
              fri_domain=bfs_gpu.fri.domain.length,
              classes=m["stream_classes"], block=m["stream_block"],
@@ -1577,8 +1822,11 @@ def stream_plans(classes, backends=("auto", "mxu")):
 
 def stream_proves(log2_cycles, smi, plans):
     """A counter of 2^log2_cycles cycles proved once for each (kind, config)
-    of `plans`: "streamed", or "resident", the same claim with `stream_min`
-    raised past its domain.
+    of `plans`: "streamed", "resident" (the same claim with `stream_min`
+    raised past its domain), or "streamed_plain_quotients" (streamed, the
+    quotient stacks op by op on F1/F2: F4's baseline, held to exactly
+    `quotient_dispatches` more F1/F2 launches than the first streamed prove
+    of its classes and backend, and no F4).
     Each with the launch counts set to 0 just before it and read just
     after, stage times and peak bytes. All proofs must be equal and the
     first must verify. A streamed prove launches B2 and B3 twice and once
@@ -1596,6 +1844,8 @@ def stream_proves(log2_cycles, smi, plans):
         if kind == "resident":
             config = {**config, "stream_min": 1 << (log2_cycles + 7)}
         bfs, args = make_stark(src, 0, "cuda", trace=trace, **config)
+        if kind == "streamed_plain_quotients":
+            plain_quotients(bfs)
         assert bfs.use_stream == (kind != "resident"), (kind, config)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1610,11 +1860,21 @@ def stream_proves(log2_cycles, smi, plans):
             proof = got
             assert bfs.verify(got), f"stream_prove: {bfs.last_rejection}"
         assert got == proof, f"stream_prove: bytes differ at {(kind, config)}"
-        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (kind, config,
-                                                                counts)
         m = bfs.last_metrics
         backend = config.get("ntt_backend", "auto")
         B, S, G = m["stream_classes"], m["stream_block"], m["stream_group"]
+        if kind == "streamed_plain_quotients":
+            f4_run = next(r["launches"] for r in runs
+                          if r["kind"] == "streamed" and r["classes"] == B
+                          and r["ntt_backend"] == backend)
+            moved = quotient_dispatches(bfs, B)
+            assert counts == {**f4_run, "f4": 0,
+                              "f1": f4_run["f1"] + moved["f1"],
+                              "f2": f4_run["f2"] + moved["f2"]}, (
+                counts, f4_run, moved)
+        else:
+            check_f4(counts, B if kind == "streamed" else 1,
+                     ("stream_prove", kind, config))
         if kind != "resident":
             assert G == stream.group_size_for(B, S), (B, S, G)
             # each class transform is 2 B2 and 1 B3 launches on mxu
@@ -1691,13 +1951,13 @@ def ref_codec_bytes(native_proof):
         got, wall, counts = timed_prove(bfs, args)
         proof = proof or got
         launches.update(
-            {k: counts[k] for k in ("b1", "f1", "f2", "f3")}
+            {k: counts[k] for k in ("b1", "f1", "f2", "f3", "f4")}
             if backend == "auto" else {"b2": counts["b2"], "b3": counts["b3"]})
         assert got == proof, "ref_codec_bytes: the NTT paths differ"
         assert got != native_proof, "ref_codec_bytes: equals the native proof"
         assert bfs.verify(got), bfs.last_rejection
         assert counts["b1"] > 0, counts
-        assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, counts
+        check_f4(counts, 1, "ref_codec_bytes")
         assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "mxu")
         emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
              fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
@@ -1749,6 +2009,7 @@ def ref_codec_prove(smi):
     assert bfs.verify(proof), bfs.last_rejection
     verify_s = time.time() - t0
     assert counts["b1"] > 0, counts
+    check_f4(counts, 1, "ref_codec_prove")
     m = bfs.last_metrics
     emit("ref_codec_prove", trace_cycles=int(args[0].shape[0]),
          fri_domain=m["fri_domain"], proof_bytes=len(proof), prove_s=wall,
@@ -1766,6 +2027,7 @@ def debug_degrees(native_proof):
     bfs, args = make_stark(STREAM_SRC, 7, "cuda", debug_degree_checks=True)
     proof, wall, counts = timed_prove(bfs, args)
     assert proof == native_proof, "debug_degrees: bytes differ"
+    check_f4(counts, 1, "debug_degrees")
     emit("debug_degrees", fri_domain=bfs.fri.domain.length,
          proof_bytes=len(proof), prove_s=wall, launches=counts,
          identical_to_unchecked=True)
@@ -1843,6 +2105,7 @@ def soundness_params(smi):
         assert bfs.verify(got), bfs.last_rejection
         verify_s = time.time() - t0
         assert counts["b1"] > 0, counts
+        check_f4(counts, 1, "soundness_params")
         m = bfs.last_metrics
         cycles = int(args[0].shape[0])
         emit("soundness_params", **SOUNDNESS, ntt_backend=backend,
@@ -1912,8 +2175,13 @@ def rank_kernels(mesh, payload):
     against the u64 network. B3: the twiddle step with this rank's tables
     (its column offset in the hi factor) against `twiddle_outer_plain` and
     against the field multiply by the rank's plain table. B1: the block's
-    leaves, salts and tree levels against `blake2b_words_plain`. Times are
-    not taken: the ranks share the card."""
+    leaves, salts and tree levels against `blake2b_words_plain`. F4: each
+    table's quotients of a mesh stark of payload["src"] on seeded columns
+    of the rank's block, through the sharded branch of
+    `_table_quotient_stack` (the next row rolled across the ranks by
+    `mesh.roll`, then F4 with rot 0) against `_table_quotient_stack_plain`
+    (the same roll, then F1/F2). Times are not taken: the ranks share the
+    card."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
@@ -1988,6 +2256,29 @@ def rank_kernels(mesh, payload):
         case("blake2b_words", {"b1": 1}, n=count, W=W,
              msg_len=msg_len, use=use)
         del words, got, plain
+    bfs, _ = make_stark(payload["src"], 0, "cuda",
+                        mesh_shape=(("shard", D),))
+    N = bfs.fri.domain.length
+    _, nb = bfs._block()
+    ch = random_field(1, 33, 60)[0].view(11, 3)
+    tm = random_field(1, 15, 61)[0].view(5, 3)
+    for ti, t in enumerate(bfs.tables):
+        base = random_field(t.base_width, nb, 62 + ti)
+        ext = random_field(3 * t.num_ext_columns, nb, 67 + ti).view(
+            t.num_ext_columns, 3, nb).movedim(1, -1)
+        zinv = {k: random_field(1, nb, 72 + 3 * ti + j)[0]
+                for j, k in enumerate(("boundary", "transition", "terminal"))}
+        reset_counts()
+        got = bfs._table_quotient_stack(ti, base, ext, ch, tm, zinv)
+        counts = read_counts()
+        assert counts == {**{k: 0 for k in counts}, "f4": 1}, (t.name, counts)
+        want = bfs._table_quotient_stack_plain(ti, base, ext, ch, tm, zinv)
+        assert torch.equal(got, want), (
+            f"F4 differs from the plain stack at rank {mesh.rank} ({t.name})")
+        out["cases"].append({"kernel": "quotients", "table": t.name, "n": nb,
+                             "rolled_across_ranks": t.unit_distance(N) > 0,
+                             "max_abs_err": 0.0})
+        del base, ext, got, want
     torch.cuda.synchronize()
     return out
 
@@ -2066,15 +2357,16 @@ def dntt_check():
                  collective_bytes_per_rank=[r["collective_bytes"] for r in rs])
 
 
-def mesh_kernels(world=2):
-    """B1, B2 and B3 on every rank of a `world`-rank mesh at the shapes of
-    the full-width mesh prove (`rank_kernels`): any difference raises in
-    the rank and fails the run."""
-    ranks = spawn_on("cuda", "rank_kernels", world, None)
+def mesh_kernels(src, world=2):
+    """B1, B2, B3 and F4 on every rank of a `world`-rank mesh at the shapes
+    of the full-width mesh prove of `src` (`rank_kernels`): any difference
+    raises in the rank and fails the run."""
+    ranks = spawn_on("cuda", "rank_kernels", world, {"src": src})
     assert [r["rank"] for r in ranks] == list(range(world))
     for r in ranks:
         names = {c["kernel"] for c in r["cases"]}
-        assert names == {"blake2b_words", "subntt", "twiddle_outer"}, names
+        assert names == {"blake2b_words", "subntt", "twiddle_outer",
+                         "quotients"}, names
         for c in r["cases"]:
             emit("mesh_kernels", world=world, rank=r["rank"],
                  factors=r["factors"], **c)
@@ -2099,6 +2391,7 @@ def mesh_bytes(src, want: bytes):
                     if device == "cuda":
                         assert r["launches"]["b1"] > 0, (world, rank, r)
                         assert (r["launches"]["b2"] > 0) == (backend == "mxu")
+                        check_f4(r["launches"], 1, ("mesh_bytes", world, rank))
                 if not verified:
                     bfs, _ = make_stark(src, 7, "cpu")
                     assert rs[0]["proof"] == want
@@ -2133,8 +2426,7 @@ def mesh_prove(src, want: bytes, smi, world=2):
                 f"mesh_prove: rank {rank} ({backend}) differs from full_prove")
             c = r["launches"]
             assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
-            assert min(c[k] for k in ("f1", "f2", "f3")) > 0, (backend, rank,
-                                                               c)
+            check_f4(c, 1, ("mesh_prove", backend, rank))
             assert (c["b2"], c["b3"]) == (
                 (4, 2) if backend == "mxu" else (0, 0)), (backend, rank, c)
         launches[backend] = [r["launches"] for r in rs]
@@ -2261,11 +2553,13 @@ def main():
          host={k: os.path.relpath(v) for k, v in host_libs.items()},
          seconds=build_s, ptxas=ptxas,
          sass_instructions={k: sass_counts(v) for k, v in libs.items()})
-    assert {"blake2b", "ntt"} <= set(libs), libs
-    assert {"hashing", "vm"} <= set(host_libs), host_libs
+    assert {"blake2b", "ntt", "field", "quotients"} <= set(libs), libs
+    assert {"hashing", "vm", "quotients_host"} <= set(host_libs), host_libs
 
+    full_src = counter_program(1 << LOG2_CYCLES)
     if opts.field_kernels:
         field_kernels()
+        quotient_kernel(full_src, smi)
         print(smi, flush=True)
         return
     if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
@@ -2288,8 +2582,10 @@ def main():
         check_b2_every_size()
         b2, b3 = check_ntt_kernels()
 
-        # 4b. F1, F2, F3 against their plain versions
+        # 4b. F1, F2, F3 against their plain versions; F4 against the
+        # op-by-op quotient stack
         f_rows = field_kernels()
+        f_rows["f4"] = quotient_kernel(full_src, smi)
 
     # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
     src = STREAM_SRC
@@ -2306,7 +2602,6 @@ def main():
         return
 
     # 6. full-size prove on the card, default and mxu NTT in turns
-    full_src = counter_program(1 << LOG2_CYCLES)
     starks, launches, proof_full = full_proves(full_src, smi)
     for counts in launches["full_prove"]:
         assert (counts["b2"], counts["b3"]) == (0, 0), counts
@@ -2324,15 +2619,18 @@ def main():
         stream_bytes(proof_small)
         stream_checkpoint(proof_small)
         stream_kernels()
-        runs = stream_proves(STREAM_LOG2_CYCLES, smi,
-                             [("resident", {})] + stream_plans(STREAM_CLASSES))
+        runs = stream_proves(
+            STREAM_LOG2_CYCLES, smi,
+            [("resident", {})] + stream_plans(STREAM_CLASSES)
+            + [("streamed_plain_quotients",
+                {"stream_classes": STREAM_CLASSES[0]})])
         assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
         # the JAX rule's groups; stream_proves held every B1, B2 and B3
         # count to its class groups (B1 against the resident prove's)
-        assert [run["group"] for run in runs[1:]] == [8, 8, 2, 2], [
+        assert [run["group"] for run in runs[1:]] == [8, 8, 2, 2, 8], [
             run["group"] for run in runs]
         streamed = {**{k: runs[1]["launches"][k]
-                       for k in ("b1", "f1", "f2", "f3")},
+                       for k in ("b1", "f1", "f2", "f3", "f4")},
                     **{k: runs[2]["launches"][k] for k in ("b2", "b3")}}
         assert min(streamed.values()) > 0, streamed
 
@@ -2342,14 +2640,14 @@ def main():
 
     # 9. the sharded prover: ranks are worker processes sharing the card
     dntt_check()
-    mesh_kernels()
+    mesh_kernels(full_src)
     mesh_bytes(src, proof_small)
     on_mesh = mesh_prove(full_src, proof_full, smi, world=opts.mesh or 2)
     if opts.mesh:
         print(smi, flush=True)
         return
     mesh_counts = {**{k: on_mesh["auto"][0][k]
-                      for k in ("b1", "f1", "f2", "f3")},
+                      for k in ("b1", "f1", "f2", "f3", "f4")},
                    "b2": on_mesh["mxu"][0]["b2"],
                    "b3": on_mesh["mxu"][0]["b3"]}
 
@@ -2403,6 +2701,21 @@ def main():
             replaces_note=f"no pl.pallas_call: the XLA-fused form of {what}",
             extra={"launches_power_tables": full["f3_powers"]}
             if key == "f3" else None))
+    # F4 stands for XLA's fusion of each table's quotient stack, staged by
+    # the JAX package as comb_quot{ti}: ms and bound of one evaluation (all
+    # five tables) resident at N = 2^21
+    kernels.append(kernel_entry(
+        "quotients", "stark_brainfuck_tpu_torch/csrc/quotients.cu",
+        "stark_brainfuck_tpu/protocol/stark.py:797", full["f4"],
+        streamed["f4"], mesh_counts["f4"], ref_counts["f4"], f_rows["f4"],
+        next(i for i, r in enumerate(f_rows["f4"])
+             if (r["form"], r["table"]) == ("resident", "all five")),
+        ("form", "table", "n"),
+        "no PyTorch call evaluates AIR constraints",
+        replaces_note="no pl.pallas_call: the XLA-fused form of "
+                      "BrainfuckStark._table_quotient_stack:797, staged as "
+                      "comb_quot{ti} (stark.py:1391)",
+        extra={"launches_mxu": counts["f4"]}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,10 @@
 // IADD3 with a carry, a xor 2 LOP3, a rotate by 24/16/63 2 funnel shifts,
 // the rotate by 32 a free half swap): at least 96 * 22 + 16 = 2,128
 // instructions per 128-byte block against at most 128 + 64 bytes of
-// device traffic. At the SM issue ceiling (132 SMs x 128 lanes x 1.98 GHz,
-// ~33 T instr/s) against 3.35 TB/s the instructions take about 1.3x the
-// time of the bytes for a one-block leaf, so the kernel is bound by
-// operations.
+// device traffic. All of them issue on the integer ALU pipe (132 SMs x 64
+// lanes x 1.98 GHz, ~16.7 T instr/s); against 3.35 TB/s they take about
+// 2.2x the time of the bytes for a one-block leaf, so the kernel is bound
+// by operations.
 //
 // Design (simple and correct first): one thread per message, 128-thread
 // blocks, a ragged tail masked. The state v[16], the chaining value h[8]

@@ -149,23 +149,6 @@ __device__ __forceinline__ void element_offsets(const Layout& L, I e,
   ob = b + (long long)e * L.sb[0];
 }
 
-// F_p^3 product, schoolbook then X^3 = X - 1 and X^4 = X^2 - X, in the
-// order of ops/xfield.py `mul_plain`
-__device__ __forceinline__ void xf_mul(uint64_t a0, uint64_t a1, uint64_t a2,
-                                       uint64_t b0, uint64_t b1, uint64_t b2,
-                                       uint64_t& r0, uint64_t& r1,
-                                       uint64_t& r2) {
-  const uint64_t c0 = gl_mul(a0, b0);
-  const uint64_t c1 = gl_add(gl_mul(a0, b1), gl_mul(a1, b0));
-  const uint64_t c2 =
-      gl_add(gl_add(gl_mul(a0, b2), gl_mul(a1, b1)), gl_mul(a2, b0));
-  const uint64_t c3 = gl_add(gl_mul(a1, b2), gl_mul(a2, b1));
-  const uint64_t c4 = gl_mul(a2, b2);
-  r0 = gl_sub(c0, c3);
-  r1 = gl_sub(gl_add(c1, c3), c4);
-  r2 = gl_add(c2, c4);
-}
-
 template <typename I>
 __global__ void __launch_bounds__(kThreads)
 gl_binary_kernel(int op, const uint64_t* __restrict__ a,

@@ -22,14 +22,14 @@
 // four-step c = 1,024 by r = 2,048) each pass reads and writes the block
 // of rows once, 906 MB or 0.27 ms at 3.35 TB/s, and the radix-2 count of
 // its adds, subs and multiplies (shifts where the twiddle is a power of
-// two) is 0.21-0.23 ms at the SM's instruction ceiling: bytes bound it on
-// paper, with operations close behind. On the card it is the operations: 32-bit
-// integer adds, logic and shifts run on one pipe of 64 lanes a clock and
-// the wide multiplies on another, not on all 128 lanes, and with the
-// arithmetic cut out the kernel runs at 1.5-1.9x its bytes while with the
-// memory traffic cut out it keeps four fifths of its time (chip_smoke.py
-// --b2-parts). So the design touches device memory once each way, in whole
-// 32-byte sectors, and spends as few instructions as it can.
+// two) is 0.33-0.37 ms on the integer ALU pipe, which issues 64 lanes a
+// clock per SM (the wide multiplies issue on the FMA pipe, 0.02-0.03 ms):
+// operations bound it, ahead of the bytes (chip_smoke.py `bound`). With
+// the arithmetic cut out the kernel runs at 1.5-1.9x its bytes while with
+// the memory traffic cut out it keeps four fifths of its time
+// (chip_smoke.py --b2-parts). So the design touches device memory once
+// each way, in whole 32-byte sectors, and spends as few instructions as it
+// can.
 //   - Tile. A block takes 2^log_vo groups of 2^log_ti adjacent vectors of
 //     m words. The launcher gives strides (batch, vector, element) for the
 //     load and for the store, so the four-step transposes happen in the

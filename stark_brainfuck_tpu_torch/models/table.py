@@ -19,8 +19,7 @@ import numpy as np
 
 from ..ops import field as f
 from ..ops import scan as sc
-from ..ops import xfield as xf
-from .interp import ArrayAlgebra, AVal, SymbolicAlgebra
+from .interp import SymbolicAlgebra
 from .symbolic import SymExpr
 
 
@@ -167,33 +166,30 @@ class Table:
 
     def quotients(
         self,
-        alg: ArrayAlgebra,
-        point: List[AVal],
-        point_next: List[AVal],
-        challenges: List[AVal],
-        terminals: List[AVal],
+        alg,
+        point: List,
+        point_next: List,
+        challenges: List,
+        terminals: List,
         zerofier_inv: Dict[str, object],
     ) -> List:
         """All quotient codewords for this table, in reference order
-        boundary → transition → terminal (ref table.py:294-301).
+        boundary → transition → terminal (ref table.py:294-301): each
+        constraint times its kind's zerofier inverse (`alg.quotient`).
 
         point/point_next: full_width operand lists over the evaluation
         domain; zerofier_inv: base-field arrays {'boundary', 'transition',
         'terminal'} (transition is all-zero when height == 0, reproducing
-        ref table.py:196-199)."""
+        ref table.py:196-199). Under `ProgramAlgebra` the operands are
+        program nodes, zerofier_inv names the kinds, and the program
+        records the outputs."""
         out = []
         for c in self.boundary_constraints_ext(alg, point, challenges):
-            out.append(
-                xf.mul_base(ArrayAlgebra.to_ext(c), zerofier_inv["boundary"])
-            )
+            out.append(alg.quotient(c, zerofier_inv["boundary"]))
         for c in self.transition_constraints_ext(
             alg, point + point_next, challenges
         ):
-            out.append(
-                xf.mul_base(ArrayAlgebra.to_ext(c), zerofier_inv["transition"])
-            )
+            out.append(alg.quotient(c, zerofier_inv["transition"]))
         for c in self.terminal_constraints_ext(alg, point, challenges, terminals):
-            out.append(
-                xf.mul_base(ArrayAlgebra.to_ext(c), zerofier_inv["terminal"])
-            )
+            out.append(alg.quotient(c, zerofier_inv["terminal"]))
         return out

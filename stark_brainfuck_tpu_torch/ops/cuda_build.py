@@ -9,7 +9,7 @@ is never rebuilt; several sources build in parallel,
 one nvcc each, all started together. nvcc's report (`-Xptxas -v`: registers,
 shared memory, spills per kernel) is kept beside each library as `.log`.
 `build_host` does the same for the host runtime's C++ sources,
-`native/<name>.cpp`, with g++ (`-O3 -fopenmp`) into
+`native/<name>.cpp` (and the host harness of kernel F4 there), with g++ (`-O3 -fopenmp`) into
 `.torch_kernels/libnative_<name>-<key>.so`. `load` and `load_host` return
 a library as a ctypes handle, building it first if needed, once per
 process and under one lock, so threads that first need a library together
@@ -75,12 +75,14 @@ def _nvcc() -> str:
 
 def _library_path(source: str, flags: List[str], stem: str) -> str:
     """Where the library of `source` lives for the current content of the
-    source and of every header beside it (`*.cuh`, which a source may
-    include): a changed header must not reuse a stale library."""
-    directory = os.path.dirname(source)
-    headers = [os.path.join(directory, name)
-               for name in sorted(os.listdir(directory))
-               if name.endswith(".cuh")]
+    source and of every header it may include (`*.cuh` beside it and in
+    `csrc/`, which the host harness of kernel F4 includes): a changed
+    header must not reuse a stale library."""
+    headers = []
+    for directory in dict.fromkeys([os.path.dirname(source), CSRC_DIR]):
+        headers += [os.path.join(directory, name)
+                    for name in sorted(os.listdir(directory))
+                    if name.endswith(".cuh")]
     key = hashlib.blake2b(digest_size=8)
     for path in [source, *headers]:
         with open(path, "rb") as fh:

@@ -70,6 +70,7 @@ from ..ops import field as f
 from ..ops import field_kernels as fk
 from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
+from ..ops import quotient_kernels as qk
 from ..ops import scan as sc
 from ..ops import xfield as xf
 from ..parallel import dntt as dn
@@ -584,7 +585,52 @@ class BrainfuckStark:
         """All quotient codewords of table ti as one (T, n, 3) stack. `ud`
         takes the place of the row shift for the streamed, per-class
         evaluation, where a shift by unit_distance over the domain is a
-        shift by unit_distance/B within each strided class."""
+        shift by unit_distance/B within each strided class. On a CUDA
+        device one launch of kernel F4 (`quotient_kernels.quotient_stack`,
+        the port's form of the JAX package's compiled `comb_quot{ti}`),
+        which reads the columns where they lie and the next row at the
+        shifted position (under a mesh, from the columns `mesh.roll`
+        brought); on the CPU `_table_quotient_stack_plain`."""
+        if fk.card_device(base_cw, ext_cw, challenges, terminals,
+                          *zinv.values()) is None:
+            return self._table_quotient_stack_plain(
+                ti, base_cw, ext_cw, challenges, terminals, zinv, ud)
+        t = self.tables[ti]
+        N = self.fri.domain.length
+        sharded = ud is None and self.mesh is not None
+        if ud is None:
+            ud = t.unit_distance(N)
+        prog = self._quotient_program(ti)
+        n = base_cw.shape[1]
+        if sharded and ud:
+            return qk.quotient_stack(
+                ti, prog, base_cw, ext_cw, challenges, terminals, zinv, 0,
+                self.mesh.roll(base_cw, ud, 1, N),
+                self.mesh.roll(ext_cw, ud, 1, N))
+        return qk.quotient_stack(ti, prog, base_cw, ext_cw, challenges,
+                                 terminals, zinv, ud % n)
+
+    def _quotient_program(self, ti):
+        """Table ti's recorded quotient program (`quotient_kernels.program`),
+        kept per table size: the IO tables' exponent is height - length."""
+        t = self.tables[ti]
+        cache = self.__dict__.setdefault("_quotient_programs", {})
+        key = (ti, t.height, t.length)
+        if key not in cache:
+            if t.name != qk.TABLES[ti]:
+                raise ValueError(f"table {ti} is {t.name}, F4 has "
+                                 f"{qk.TABLES[ti]}")
+            cache[key] = qk.program(t)
+        return cache[key]
+
+    def _table_quotient_stack_plain(self, ti, base_cw, ext_cw, challenges,
+                                    terminals, zinv,
+                                    ud: Optional[int] = None):
+        """`_table_quotient_stack` op by op: `Table.quotients` over
+        `ArrayAlgebra`, the next row a rolled copy of the columns. On CPU
+        tensors the plain field operations; on CUDA tensors every operation
+        is its own F1/F2 launch (the form F4 replaced, kept as its
+        yardstick)."""
         t = self.tables[ti]
         alg = ArrayAlgebra(self.device)
         ch_vals = [alg.x(challenges[i]) for i in range(11)]
@@ -982,7 +1028,7 @@ class BrainfuckStark:
         self.last_commit_resumes = []
         launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE,
                      fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD,
-                     fk.LAUNCHES_ACC)
+                     fk.LAUNCHES_ACC, qk.LAUNCHES_QUOTIENT)
 
         # 1. populate and pad (ref brainfuck_stark.py:139-150)
         assert len(processor_matrix) + len(self.program) == len(instruction_matrix)
@@ -1332,6 +1378,7 @@ class BrainfuckStark:
             gl_elementwise_launches=fk.LAUNCHES_ELEMENTWISE - launches0[3],
             xf_elementwise_launches=fk.LAUNCHES_XFIELD - launches0[4],
             acc_group_launches=fk.LAUNCHES_ACC - launches0[5],
+            quotient_launches=qk.LAUNCHES_QUOTIENT - launches0[6],
         )
         return proof
 

@@ -453,6 +453,46 @@ def test_mallory_forged_trace_rejected():
     assert "FRI low-degree test failed" in tb.last_rejection
 
 
+def _both_provers(src, seed):
+    """[(port stark, its prove arguments), (JAX stark, its arguments)] of a
+    program without input, traced by the JAX package."""
+    program = J.VirtualMachine.compile(src)
+    tr = J.VirtualMachine.simulate(program, "")
+    args = (tr["processor"], tr["memory"], tr["instruction"], tr["input"],
+            tr["output"])
+    out = []
+    for pkg, kw, pkw in ((TP, {}, {"device": "cpu"}), (J, {"xp": np}, {})):
+        bfs = pkg.BrainfuckStark(
+            tr["processor"].shape[0], tr["memory"].shape[0], program, "",
+            tr["output_data"], pkg.StarkConfig(seed=seed), **pkw)
+        out.append((bfs, lambda bfs=bfs, kw=kw: bfs.prove(*args, **kw)))
+    return out
+
+
+def test_output_outside_a_byte_proves_and_is_rejected_as_in_jax():
+    """A fault both packages share (vm/machine.py:214 and :285 of the JAX
+    package): `-.` outputs p - 1, but the public output is chr(v % 256),
+    so the proof never verifies. Both provers emit the same bytes and both
+    verifiers reject them for the same reason."""
+    (tb, prove_t), (jb, prove_j) = _both_provers("-.", 7)
+    pt, pj = prove_t(), prove_j()
+    assert pt == pj and len(pt) == 20582
+    for bfs in (tb, jb):
+        for proof in (pt, pj):
+            assert not bfs.verify(proof)
+            assert bfs.last_rejection == ("output evaluation terminal does "
+                                          "not match the public output")
+
+
+def test_empty_program_raises_index_error_as_in_jax():
+    """A fault both packages share (models/memory.py:115 of the JAX
+    package): the empty program's memory table has no rows, and both
+    provers raise IndexError at its terminal, inc[-1]."""
+    for bfs, prove in _both_provers("", 1):
+        with pytest.raises(IndexError):
+            prove()
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "stark_brainfuck_tpu_torch")
     for base, _, files in os.walk(pkg):
