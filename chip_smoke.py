@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
                           [--stream-log2-cycles K] [--field-kernels]
+                          [--fri-fold]
                           [--ref-codec] [--mesh [RANKS]]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
@@ -50,7 +51,19 @@ line each; any failure raises and exits non-zero:
      at N = 2^21, as a streamed class (class 1 of 16, S = 2^17, row shift
      ud / 16) and with the next row as columns rolled by the caller (rot
      0), each launched once and counted, timed beside the plain stack and
-     bounded by `quotient_work`;
+     bounded by `quotient_work`; fri_fold: F5 (csrc/fri.cu, one FRI fold
+     round in one launch) against the plain fold (`fold_plain`, op by op
+     on F1/F2), exactly, at every device round of the full-size prove (N =
+     2^21 .. 2^14), at the first round of the FRI 2^22 and 2^26 streamed
+     proves, on a mesh rank's block (rank 1 of 2 at FRI 2^21, start index
+     2^19) and on every pair of edge elements under edge α, each launched
+     once and counted, timed beside the plain fold and bounded by
+     `fold_work`; fri_host_fold: the host tail's fold
+     (native/fri_host.cpp) against the plain fold on the host's torch and
+     the JAX package's numpy form, exactly, at 2^4 .. 2^16 values, with
+     the host times of all three, and the fold built at each of
+     FOLD_PARALLEL_MINS (the output count from which a round folds on
+     every core), each timed at those sizes and checked;
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
      give the same bytes, and both must verify; the same again with
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
@@ -59,14 +72,20 @@ line each; any failure raises and exits non-zero:
      the largest resident one) on the default NTT path (full_prove) and
      with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
-     launch counts (B1, B2, B3 and F1-F4; F1-F3 above 0 and F4 exactly 5
+     launch counts (B1, B2, B3 and F1-F5; F1-F3 above 0, F4 exactly 5
      a quotient evaluation on every prove of the card: one resident, one a
-     class streamed), stage times, peak device memory at each stage mark and
+     class streamed, and F5 exactly once a device fold round: 8 here, 9 at
+     FRI 2^22, 13 at 2^26, one a device round on every other prove),
+     stage times, FRI's rounds summed on the device and on the host, peak
+     device memory at each stage mark and
      the prover's NTT butterfly, hashed leaf and extended row counts and
      rates (so too each stream_prove below); all proofs byte-identical;
      and in the same turns the default path with the quotient stacks op by
      op on F1/F2 (full_prove_plain_quotients, F4's baseline: no F4, and
-     exactly the F1/F2 launches of `quotient_dispatches` more);
+     exactly the F1/F2 launches of `quotient_dispatches` more) and with
+     every fold op by op (full_prove_plain_fold, F5's and the host fold's
+     baseline: no F5, and exactly the F1/F2 launches of `fold_dispatches`
+     more);
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
      stream_bytes: the N=16384 program with `stream_min=1,
      stream_classes=4` on cuda and on cpu, on both NTT paths, every proof
@@ -134,7 +153,7 @@ line each; any failure raises and exits non-zero:
   11. last line: {"ok": true, "device": {...}}.
 
 `--field-kernels` runs only the field_kernels and quotient_kernel phases
-after the build.
+after the build, and `--fri-fold` only fri_fold and fri_host_fold.
 `--ref-codec` runs step 5 and then only step 8, and stops before the
 kernels line. `--mesh [RANKS]` leaves out the kernel checks of steps 3 and
 4 and all of steps 7 and 8, runs mesh_prove on RANKS ranks (2 by default) and stops before the
@@ -156,6 +175,8 @@ Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -312,7 +333,8 @@ def sass_counts(library: str):
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         short = next((k for k in ("blake2b_words_kernel", "subntt_kernel",
-                                  "twiddle_outer_kernel") if k in name), name)
+                                  "twiddle_outer_kernel", "fri_fold_kernel")
+                      if k in name), name)
         table = re.search(r"Quotients([A-Z][a-z]+)", name)
         if "quotients_kernel" in name and table:
             short = f"quotients_kernel<{table.group(1)}>"
@@ -1095,6 +1117,327 @@ def quotient_kernel(src, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# F5: FRI's fold round in one launch (csrc/fri.cu), and the host tail's fold
+# (native/fri_host.cpp)
+# ---------------------------------------------------------------------------
+
+# fewest instructions of one folded value (csrc/fri.cuh `fri_fold_at` and
+# the step of x^-1): 1 + 3 + 9 + 3 multiplies, 12 adds (3 for lo + hi, 6 in
+# the F_p^3 product, 3 for the sum) and 5 subs (3 for lo - hi, 2 in the
+# product); the ladder's few multiplies a thread are left out
+FOLD_OPS = 16 * GL_MUL_OPS + 12 * GL_ADD_OPS + 5 * GL_SUB_OPS
+# the first rounds of the streamed proves (FRI 2^22 and 2^26), beside the
+# resident prove's device rounds (2^21 .. 2^14)
+FOLD_STREAMED = (22, 26)
+# a mesh rank's fold: rank 1 of 2 at FRI 2^21, a block of 2^20 pairs
+FOLD_MESH = (1, 2)
+FOLD_ALPHAS = ((0, 0, 0), (1, 0, 0), (0xFFFFFFFF00000000,) * 3)
+# host folds: codewords of 2^4 .. 2^16 values, each timed as the least of
+# FOLD_HOST_REPS
+FOLD_HOST_LOG2 = range(4, 17)
+FOLD_HOST_REPS = 20
+# the host fold is also built at each of FOLD_PARALLEL_MINS (the output
+# count from which a round folds on every core; 2^40: never) and its bare
+# call timed at every FOLD_HOST_LOG2 size
+FOLD_PARALLEL_MINS = (1, 256, 512, 1024, 2048, 4096, 1 << 40)
+
+
+def fold_work(n: int):
+    """(bytes, Ops) of one fold of an n-value codeword: each input word
+    read once (24n bytes), each output word written once (12n), and
+    FOLD_OPS a folded value."""
+    return 36 * n, (n // 2) * FOLD_OPS
+
+
+def device_rounds(bfs):
+    """The codeword lengths of a prove's device fold rounds, one F5 launch
+    each on the card: from the FRI domain down while at least `host_min`,
+    where the commitments are device trees (native codec, N >=
+    `device_commit_min`); every other round is a host round."""
+    fri = bfs.fri
+    N = fri.domain.length
+    if not bfs._device_commit():
+        return []
+    return [N >> r for r in range(fri.num_rounds() - 1)
+            if N >> r >= fri.host_min]
+
+
+def check_fri(counts, bfs, where):
+    """F5 launched once a device fold round of the prove, and no more."""
+    assert counts["f5"] == len(device_rounds(bfs)), (where, counts)
+
+
+def fri_split(bfs):
+    """`fri_round_s` of the last prove summed over its device rounds (the
+    first ones) and over its host rounds."""
+    rounds = bfs.last_metrics["fri_round_s"]
+    d = len(device_rounds(bfs))
+    return {"fri_device_rounds": d, "fri_device_s": sum(rounds[:d]),
+            "fri_host_rounds": len(rounds) - d, "fri_host_s": sum(rounds[d:])}
+
+
+def geometric_launches(count: int) -> int:
+    """F1 launches of `field.geometric_rows` for `count` columns: one
+    multiply a doubling, and one of the factor between two."""
+    launches, length = 0, 1
+    while length < count:
+        length += min(length, count - length)
+        launches += 1 + (length < count)
+    return launches
+
+
+def fold_dispatches(bfs):
+    """{"f1", "f2": launches} of the op-by-op device folds of a prove
+    (`fri_kernels.fold_plain` on the card): `geometric_rows` of each
+    round's N/2 values of 1/x, then `fold_math`'s F1 add, sub, add and
+    multiply by 2^-1, and its F2 mul_base and two muls. The launches F5
+    replaces."""
+    lengths = device_rounds(bfs)
+    return {"f1": sum(geometric_launches(n // 2) + 4 for n in lengths),
+            "f2": 3 * len(lengths)}
+
+
+@contextlib.contextmanager
+def plain_fold():
+    """Within it, every fold round goes op by op as before F5: device
+    rounds through `fri_kernels.fold_plain` on F1/F2, host rounds through
+    the same plain fold on the host's torch. The baseline of the fold."""
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FK
+    from stark_brainfuck_tpu_torch.protocol import fri
+
+    saved = fri._fold_device, FK.fold_host
+    fri._fold_device = FK.fold_host = FK.fold_plain
+    try:
+        yield
+    finally:
+        fri._fold_device, FK.fold_host = saved
+
+
+def fold_cases():
+    """(form, N, codeword, α, ω, offset, start index) of every F5 check:
+    each device round of the resident prove, the first round of each
+    streamed prove, a mesh rank's block, and edge words under edge α."""
+    from stark_brainfuck_tpu_torch.ops import field as F
+
+    cases = []
+    for k, log2 in enumerate(range(LOG2_FRI, 13, -1)):
+        n = 1 << log2
+        # round r folds on (ω^(2^r), offset^(2^r)) of the FRI domain
+        omega = F.primitive_nth_root(n)
+        offset = F.h_pow(F.GENERATOR, 1 << k)
+        cases.append(("resident round", n, random_field(n, 3, 500 + k),
+                      fold_alpha(500 + k), omega, offset, 0))
+    for log2 in FOLD_STREAMED:
+        n = 1 << log2
+        cases.append(("streamed first round", n, random_field(n, 3, 510),
+                      fold_alpha(510), F.primitive_nth_root(n), F.GENERATOR,
+                      0))
+    rank, world = FOLD_MESH
+    n = (1 << LOG2_FRI) // world
+    cases.append(("mesh rank block", n, random_field(n, 3, 520),
+                  fold_alpha(520), F.primitive_nth_root(1 << LOG2_FRI),
+                  F.GENERATOR, rank * n // 2))
+    e = edge_words(FIELD_EDGES[:3])  # 0, 1, p - 1
+    elems = torch.stack(torch.meshgrid(e, e, e, indexing="ij"),
+                        dim=-1).reshape(-1, 3)
+    pairs = torch.cat([elems.repeat_interleave(elems.shape[0], 0),
+                       elems.repeat(elems.shape[0], 1)]).contiguous()
+    for alpha in FOLD_ALPHAS:
+        cases.append(("edge words", int(pairs.shape[0]), pairs, alpha,
+                      F.primitive_nth_root(1 << 11), F.GENERATOR, 3))
+    return cases
+
+
+def fold_alpha(seed):
+    """A random α, three canonical words from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return tuple(int(v) for v in rng.integers(0, 0xFFFFFFFF00000001, 3,
+                                              dtype=np.uint64))
+
+
+def fri_fold(smi):
+    """F5 against the plain fold (`fold_plain`, op by op on F1/F2 where the
+    codeword lies) on the card, exactly, in every form of `fold_cases`,
+    launched once and counted; up to 2^16 values and on edge words also
+    against the plain fold on the host's torch. Each: `ms` one call's
+    device time (`graph_ms`, cold L2), `call_ms` the CUDA-event median of
+    20 calls from the host, the plain fold's CUDA-event median of 3, and
+    the bound of `fold_work`. Returns the rows."""
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FK
+
+    rows = []
+    for form, n, cw, alpha, omega, offset, start in fold_cases():
+        run = functools.partial(FK.fold, cw, alpha, omega, offset, start)
+        run_plain = functools.partial(FK.fold_plain, cw, alpha, omega,
+                                      offset, start)
+        reset_counts()
+        got = run()
+        counts = read_counts()
+        assert counts == {**{k: 0 for k in counts}, "f5": 1}, (form, n, counts)
+        want = run_plain()
+        torch.cuda.synchronize()
+        assert got.shape == (n // 2, 3), (form, n, got.shape)
+        err = max_abs_err(got, want)
+        assert err == 0.0, f"F5 differs from the plain fold: {form}, {n}"
+        host_checked = n <= 1 << 16
+        if host_checked:
+            host = FK.fold_plain(cw.cpu(), alpha, omega, offset, start)
+            assert torch.equal(got.cpu(), host), (form, n)
+        del got, want
+        nbytes, ops = fold_work(n)
+        bound_ms, bound_by = bound(nbytes, ops)
+        row = {"kernel": "f5", "form": form, "n": n, "alpha": list(alpha),
+               "start_index": start, "max_abs_err": err,
+               "held_to_host_plain": host_checked,
+               "ms": graph_ms(run), "call_ms": cuda_ms(run, reps=20),
+               "plain_ms": cuda_ms(run_plain, reps=3),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops.as_dict(), "nvidia_smi": smi}
+        emit("fri_fold", **row)
+        rows.append(row)
+    return rows
+
+
+def numpy_fold(cw, alpha, omega, offset):
+    """The JAX package's host-tail fold in numpy u64 (stark_brainfuck_tpu/
+    protocol/fri.py:347-362), an own copy for its time on this host: 1/x_i
+    by doubling, the (1 ± α/x_i) combination with two F_p^3 multiplies,
+    then 2^-1."""
+    import numpy as np
+
+    P = 0xFFFFFFFF00000001
+    u, M, S = np.uint64, np.uint64(0xFFFFFFFF), np.uint64(32)
+
+    def sub(a, b):  # a - b (mod p) for canonical a, b
+        return np.where(a >= b, a - b, a - b + u(P))
+
+    def add(a, b):
+        return sub(a, u(P) - b)
+
+    def mul(a, b):
+        al, ah, bl, bh = a & M, a >> S, b & M, b >> S
+        ll, lh, hl, hh = al * bl, al * bh, ah * bl, ah * bh
+        mid = (ll >> S) + (lh & M) + (hl & M)
+        lo = (ll & M) | (mid << S)
+        hi = hh + (lh >> S) + (hl >> S) + (mid >> S)
+        # hi·2^64 + lo with 2^64 = 2^32 - 1 and 2^96 = -1 (mod p)
+        t0 = np.where(lo < (hi >> S), lo - (hi >> S) - M, lo - (hi >> S))
+        return sub(t0, u(P) - (((hi & M) << S) - (hi & M)))
+
+    def xmul(a, b):
+        c0 = mul(a[:, 0], b[:, 0])
+        c1 = add(mul(a[:, 0], b[:, 1]), mul(a[:, 1], b[:, 0]))
+        c2 = add(add(mul(a[:, 0], b[:, 2]), mul(a[:, 1], b[:, 1])),
+                 mul(a[:, 2], b[:, 0]))
+        c3 = add(mul(a[:, 1], b[:, 2]), mul(a[:, 2], b[:, 1]))
+        c4 = mul(a[:, 2], b[:, 2])
+        return np.stack([sub(c0, c3), sub(add(c1, c3), c4), add(c2, c4)], 1)
+
+    half = cw.shape[0] // 2
+    r = pow(omega, P - 2, P)
+    ixs = np.empty(half, dtype=u)
+    ixs[0] = pow(offset, P - 2, P)
+    n = 1
+    while n < half:
+        take = min(n, half - n)
+        ixs[n:n + take] = mul(ixs[:take], u(pow(r, n, P)))
+        n += take
+    a = np.stack([mul(u(c), ixs) for c in alpha], 1)
+    one = np.zeros((half, 3), dtype=u)
+    one[:, 0] = 1
+    lo = xmul(add(one, a), cw[:half])
+    hi = xmul(sub(one, a), cw[half:])
+    return mul(add(lo, hi), u(pow(2, P - 2, P)))
+
+
+def fri_host_fold(smi):
+    """The host tail's fold (`fri_kernels.fold_host`, native/fri_host.cpp)
+    on this host against the plain fold on the host's torch (the port's
+    host rounds before F5's body was built for the host) and the JAX
+    package's numpy form (`numpy_fold`), exactly, at 2^4 .. 2^16 values:
+    the least of FOLD_HOST_REPS host wall times of each, in ms."""
+    from stark_brainfuck_tpu_torch.convert import tensor_to_u64
+    from stark_brainfuck_tpu_torch.ops import field as F
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FK
+
+    rows = []
+    for log2 in FOLD_HOST_LOG2:
+        n = 1 << log2
+        cw = random_field(n, 3, 600 + log2).cpu()
+        alpha = fold_alpha(600 + log2)
+        omega, offset = F.primitive_nth_root(n), F.GENERATOR
+        words = tensor_to_u64(cw)
+        forms = {"native": lambda: FK.fold_host(cw, alpha, omega, offset),
+                 "torch_plain": lambda: FK.fold_plain(cw, alpha, omega,
+                                                      offset),
+                 "numpy": lambda: numpy_fold(words, alpha, omega, offset)}
+        got = FK.fold_host(cw, alpha, omega, offset)
+        assert torch.equal(got, forms["torch_plain"]()), n
+        assert (tensor_to_u64(got) == forms["numpy"]()).all(), n
+        row = {"n": n}
+        for name, fn in forms.items():
+            times = []
+            for _ in range(FOLD_HOST_REPS if name == "native" else 3):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row[f"{name}_ms"] = min(times)
+        rows.append(row)
+    emit("fri_host_fold", rows=rows,
+         parallel_min_sweep=fold_parallel_min_sweep(),
+         cpu_count=os.cpu_count(), nvidia_smi=smi)
+    return rows
+
+
+def fold_parallel_min_sweep():
+    """The least of FOLD_HOST_REPS times (ms) of the bare host fold call
+    (no wrapper: the constants made once) for each output count from which
+    a round folds in parallel, each a build of native/fri_host.cpp of its
+    own (all started together), at every FOLD_HOST_LOG2 size, each result
+    checked against the shipped fold's."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stark_brainfuck_tpu_torch.ops import cuda_build
+    from stark_brainfuck_tpu_torch.ops import field as F
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FK
+
+    with ThreadPoolExecutor(len(FOLD_PARALLEL_MINS)) as pool:
+        paths = list(pool.map(
+            lambda m: cuda_build.build_host(
+                ["fri_host"], [f"FRI_FOLD_PARALLEL_MIN={m}"])["fri_host"],
+            FOLD_PARALLEL_MINS))
+    rounds = []
+    for log2 in FOLD_HOST_LOG2:
+        n = 1 << log2
+        cw = random_field(n, 3, 600 + log2).cpu()
+        alpha = fold_alpha(600 + log2)
+        omega, offset = F.primitive_nth_root(n), F.GENERATOR
+        rounds.append((n, cw, FK.fold_words(alpha, omega, offset),
+                       FK.fold_host(cw, alpha, omega, offset)))
+    out = {}
+    for pmin, path in zip(FOLD_PARALLEL_MINS, paths):
+        fn = ctypes.CDLL(path).fri_fold_host
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = None
+        row = {}
+        for n, cw, words, want in rounds:
+            got = torch.empty_like(want)
+            times = []
+            for _ in range(FOLD_HOST_REPS):
+                t0 = time.perf_counter()
+                fn(cw.data_ptr(), n // 2, words, got.data_ptr())
+                times.append((time.perf_counter() - t0) * 1e3)
+            assert torch.equal(got, want), (pmin, n)
+            row[str(n // 2)] = min(times)
+        out[str(pmin)] = row
+    return out
+
+
 def b2_sweep():
     """Times B2's two four-step passes and the whole transform at the
     extension shape (27 rows of 2^21) under several tile shapes (the
@@ -1335,7 +1678,7 @@ def make_stark(src: str, seed: int, device, trace=None, **config):
 
 def profile_prove(bfs, args, out_dir):
     """One prove under torch.profiler: device time by kernel name, the
-    device's busy share of the wall time, and B1's and F1-F3's device time;
+    device's busy share of the wall time, and B1's and F1-F5's device time;
     the full table goes to out_dir/profile_prove.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1359,7 +1702,7 @@ def profile_prove(bfs, args, out_dir):
                          if name in e.key) / 1e6
                for name in ("gl_binary_kernel", "xf_binary_kernel",
                             "acc_group_kernel", "acc_powers_kernel",
-                            "quotients_kernel")}
+                            "quotients_kernel", "fri_fold_kernel")}
     # the copies of torch.cat (CatArrayBatchedCopy kernels)
     cat_s = sum(e.self_device_time_total for e in events
                 if "CatArray" in e.key) / 1e6
@@ -1387,11 +1730,13 @@ def rates(bfs):
 def reset_counts():
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FRI
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
     B.LAUNCHES = 0
     QK.LAUNCHES_QUOTIENT = 0
+    FRI.LAUNCHES_FOLD = 0
     K.LAUNCHES_SUBNTT = 0
     K.LAUNCHES_TWIDDLE = 0
     FK.LAUNCHES_ELEMENTWISE = 0
@@ -1401,10 +1746,11 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches of B1, B2, B3 and F1-F4 (and F3's power tables) since the
+    """Launches of B1, B2, B3 and F1-F5 (and F3's power tables) since the
     last reset_counts()."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
+    from stark_brainfuck_tpu_torch.ops import fri_kernels as FRI
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
@@ -1412,7 +1758,7 @@ def read_counts():
             "b3": K.LAUNCHES_TWIDDLE, "f1": FK.LAUNCHES_ELEMENTWISE,
             "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC,
             "f3_powers": FK.LAUNCHES_ACC_POWERS,
-            "f4": QK.LAUNCHES_QUOTIENT}
+            "f4": QK.LAUNCHES_QUOTIENT, "f5": FRI.LAUNCHES_FOLD}
 
 
 def check_f4(counts, evaluations: int, where):
@@ -1495,58 +1841,81 @@ def stage_c(bfs, counts):
 
 
 def full_proves(src, smi):
-    """The full-size prove on the default and the mxu NTT path, and on the
+    """The full-size prove on the default and the mxu NTT path, on the
     default path with the quotient stacks op by op on F1/F2
-    (`plain_quotients`, the baseline of F4): a warm-up prove and verify for
-    each, then two timed proves each, in turns (default, mxu, plain, plain,
-    mxu, default) so they are compared on the same card in the same state.
-    Launch counts are set to 0 just before each timed prove and read just
-    after it; stage times and peak bytes are kept per prove. Every proof
-    must equal the default path's warm-up bytes; F4 launches 5 times a
-    prove and the plain baseline none, with exactly `quotient_dispatches`
-    more F1 and F2 launches. Returns ({path: (stark, args)}, {path: launch
-    counts per prove}, the proof)."""
+    (`plain_quotients`, the baseline of F4), and on the default path with
+    every fold op by op (`plain_fold`, the baseline of F5 and of the host
+    fold): a warm-up prove and verify for each, then two timed proves each,
+    in turns (default, mxu, plain quotients, plain fold, plain fold, plain
+    quotients, mxu, default) so they are compared on the same card in the
+    same state. Launch counts are set to 0 just before each timed prove and
+    read just after it; stage times, the FRI rounds' device and host sums
+    (`fri_split`) and peak bytes are kept per prove. Every proof must equal
+    the default path's warm-up bytes; F4 launches 5 times a prove and F5
+    once a device fold round (`check_fri`: 8 at FRI 2^21); each baseline
+    launches none of its kernel and exactly `quotient_dispatches` or
+    `fold_dispatches` more F1 and F2 kernels. Returns ({path: (stark,
+    args)}, {path: launch counts per prove}, the proof)."""
     paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"},
-             "full_prove_plain_quotients": {}}
+             "full_prove_plain_quotients": {}, "full_prove_plain_fold": {}}
     starks, warm, runs = {}, {}, {p: [] for p in paths}
     proof = None
+
+    def prove(phase, bfs, args):
+        if phase != "full_prove_plain_fold":
+            return bfs.prove(*args)
+        with plain_fold():
+            return bfs.prove(*args)
+
     for phase, config in paths.items():
         bfs, args = make_stark(src, 0, "cuda", **config)
         if phase == "full_prove_plain_quotients":
             plain_quotients(bfs)
         t0 = time.time()
-        got = bfs.prove(*args)
+        got = prove(phase, bfs, args)
         warm[phase] = time.time() - t0
         assert bfs.verify(got), f"{phase}: proof failed to verify"
         proof = proof or got
         assert got == proof, f"{phase}: bytes differ from the default path"
         starks[phase] = (bfs, args)
     for phase in ("full_prove", "full_prove_mxu",
-                  "full_prove_plain_quotients", "full_prove_plain_quotients",
+                  "full_prove_plain_quotients", "full_prove_plain_fold",
+                  "full_prove_plain_fold", "full_prove_plain_quotients",
                   "full_prove_mxu", "full_prove"):
         bfs, args = starks[phase]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.time()
-        got = bfs.prove(*args)
+        got = prove(phase, bfs, args)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
         assert got == proof, f"{phase}: seeded proves differ"
         assert counts["b1"] > 0, f"{phase}: launched no B1 kernel"
+        # the first timed prove is the default path's
+        base = (runs["full_prove"] or [{"launches": counts}])[0]["launches"]
         if phase == "full_prove_plain_quotients":
-            f4_run = runs["full_prove"][0]["launches"]
             moved = quotient_dispatches(bfs)
-            assert counts == {**f4_run, "f4": 0,
-                              "f1": f4_run["f1"] + moved["f1"],
-                              "f2": f4_run["f2"] + moved["f2"]}, (
-                counts, f4_run, moved)
+            assert counts == {**base, "f4": 0,
+                              "f1": base["f1"] + moved["f1"],
+                              "f2": base["f2"] + moved["f2"]}, (
+                counts, base, moved)
         else:
             check_f4(counts, 1, phase)
+        if phase == "full_prove_plain_fold":
+            moved = fold_dispatches(bfs)
+            assert counts == {**base, "f5": 0,
+                              "f1": base["f1"] + moved["f1"],
+                              "f2": base["f2"] + moved["f2"]}, (
+                counts, base, moved)
+        else:
+            check_fri(counts, bfs, phase)
         runs[phase].append({
             "prove_s": wall, "launches": counts, **stage_c(bfs, counts),
             "stages_s": bfs.last_metrics["stages_s"],
+            "fri_prove_s": bfs.last_metrics["stages_s"].get("fri.prove"),
+            **fri_split(bfs),
             "fri_round_s": bfs.last_metrics["fri_round_s"],
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "peak_bytes_at_mark": bfs.last_metrics["peak_bytes_at_mark"],
@@ -1558,6 +1927,9 @@ def full_proves(src, smi):
         extra = {}
         if phase == "full_prove_plain_quotients":
             extra = {"quotient_dispatches_replaced": quotient_dispatches(bfs)}
+        if phase == "full_prove_plain_fold":
+            extra = {"fold_dispatches_replaced": fold_dispatches(bfs),
+                     "fri_device_rounds": device_rounds(bfs)}
         emit(phase, target_cycles=1 << LOG2_CYCLES, trace_cycles=cycles,
              fri_domain=bfs.fri.domain.length,
              cycles_per_s=cycles / min(r["prove_s"] for r in rs),
@@ -1582,6 +1954,7 @@ def bytes_across_devices(phase, src, want=None, **config):
     assert proof_gpu == proof_cpu, f"{phase}: cuda and cpu proofs differ"
     assert want is None or proof_gpu == want, f"{phase}: bytes differ"
     check_f4(counts, 1, phase)
+    check_fri(counts, bfs_gpu, phase)
     assert bfs_gpu.verify(proof_gpu) and bfs_cpu.verify(proof_cpu)
     assert counts["b1"] > 0, f"{phase}: device-commit prove launched no B1"
     emit(phase, fri_domain=bfs_gpu.fri.domain.length,
@@ -1620,6 +1993,7 @@ def stream_bytes(want):
             (class_transforms(4, 4), 0) if backend == "mxu" else (0, 0)
         ), counts
         check_f4(counts, m["stream_classes"], "stream_bytes")
+        check_fri(counts, bfs_gpu, "stream_bytes")
         emit("stream_bytes", ntt_backend=backend,
              fri_domain=bfs_gpu.fri.domain.length,
              classes=m["stream_classes"], block=m["stream_block"],
@@ -1875,6 +2249,7 @@ def stream_proves(log2_cycles, smi, plans):
         else:
             check_f4(counts, B if kind == "streamed" else 1,
                      ("stream_prove", kind, config))
+        check_fri(counts, bfs, ("stream_prove", kind, config))
         if kind != "resident":
             assert G == stream.group_size_for(B, S), (B, S, G)
             # each class transform is 2 B2 and 1 B3 launches on mxu
@@ -1896,6 +2271,8 @@ def stream_proves(log2_cycles, smi, plans):
                "merkle_s": sum(stages.get(k, 0.0) for k in MERKLE_STAGES),
                "reopen_s": stages.get(REOPEN_STAGE),
                "stages_s": stages, **stage_c(bfs, counts),
+               "fri_prove_s": stages.get("fri.prove"), **fri_split(bfs),
+               "fri_round_s": m["fri_round_s"],
                "baseline_ungrouped": BASELINE_STREAM.get(
                    (B if kind != "resident" else 1, backend))
                if log2_cycles == STREAM_LOG2_CYCLES else None,
@@ -1951,13 +2328,14 @@ def ref_codec_bytes(native_proof):
         got, wall, counts = timed_prove(bfs, args)
         proof = proof or got
         launches.update(
-            {k: counts[k] for k in ("b1", "f1", "f2", "f3", "f4")}
+            {k: counts[k] for k in ("b1", "f1", "f2", "f3", "f4", "f5")}
             if backend == "auto" else {"b2": counts["b2"], "b3": counts["b3"]})
         assert got == proof, "ref_codec_bytes: the NTT paths differ"
         assert got != native_proof, "ref_codec_bytes: equals the native proof"
         assert bfs.verify(got), bfs.last_rejection
         assert counts["b1"] > 0, counts
         check_f4(counts, 1, "ref_codec_bytes")
+        check_fri(counts, bfs, "ref_codec_bytes")
         assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "mxu")
         emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
              fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
@@ -2010,11 +2388,13 @@ def ref_codec_prove(smi):
     verify_s = time.time() - t0
     assert counts["b1"] > 0, counts
     check_f4(counts, 1, "ref_codec_prove")
+    check_fri(counts, bfs, "ref_codec_prove")
     m = bfs.last_metrics
     emit("ref_codec_prove", trace_cycles=int(args[0].shape[0]),
          fri_domain=m["fri_domain"], proof_bytes=len(proof), prove_s=wall,
          verify_s=verify_s, launches=counts, stages_s=m["stages_s"],
-         fri_round_s=m["fri_round_s"], hash_path=m["hash_path"],
+         fri_round_s=m["fri_round_s"], **fri_split(bfs),
+         hash_path=m["hash_path"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          verified=True, nvidia_smi=smi)
     return counts
@@ -2028,6 +2408,7 @@ def debug_degrees(native_proof):
     proof, wall, counts = timed_prove(bfs, args)
     assert proof == native_proof, "debug_degrees: bytes differ"
     check_f4(counts, 1, "debug_degrees")
+    check_fri(counts, bfs, "debug_degrees")
     emit("debug_degrees", fri_domain=bfs.fri.domain.length,
          proof_bytes=len(proof), prove_s=wall, launches=counts,
          identical_to_unchecked=True)
@@ -2106,6 +2487,7 @@ def soundness_params(smi):
         verify_s = time.time() - t0
         assert counts["b1"] > 0, counts
         check_f4(counts, 1, "soundness_params")
+        check_fri(counts, bfs, "soundness_params")
         m = bfs.last_metrics
         cycles = int(args[0].shape[0])
         emit("soundness_params", **SOUNDNESS, ntt_backend=backend,
@@ -2113,6 +2495,7 @@ def soundness_params(smi):
              fri_domain=m["fri_domain"], prove_s=wall,
              cycles_per_s=cycles / wall, verify_s=verify_s,
              proof_bytes=len(got), launches=counts, stages_s=m["stages_s"],
+             **fri_split(bfs),
              max_memory_allocated=torch.cuda.max_memory_allocated(),
              identical=True, verified=True, nvidia_smi=smi)
         del bfs, args
@@ -2316,6 +2699,7 @@ def rank_proves(mesh, payload):
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                      if cuda else None),
             "peak_bytes_at_mark": m.get("peak_bytes_at_mark"),
+            "fri_device_fold_rounds": device_rounds(bfs), **fri_split(bfs),
         }
         del bfs
     return out
@@ -2392,6 +2776,8 @@ def mesh_bytes(src, want: bytes):
                         assert r["launches"]["b1"] > 0, (world, rank, r)
                         assert (r["launches"]["b2"] > 0) == (backend == "mxu")
                         check_f4(r["launches"], 1, ("mesh_bytes", world, rank))
+                        assert r["launches"]["f5"] == len(
+                            r["fri_device_fold_rounds"]), (world, rank, r)
                 if not verified:
                     bfs, _ = make_stark(src, 7, "cpu")
                     assert rs[0]["proof"] == want
@@ -2427,6 +2813,9 @@ def mesh_prove(src, want: bytes, smi, world=2):
             c = r["launches"]
             assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
             check_f4(c, 1, ("mesh_prove", backend, rank))
+            # every round from 2^21 down to 2^14: in blocks, then gathered
+            assert c["f5"] == len(r["fri_device_fold_rounds"]) == 8, (
+                backend, rank, c)
             assert (c["b2"], c["b3"]) == (
                 (4, 2) if backend == "mxu" else (0, 0)), (backend, rank, c)
         launches[backend] = [r["launches"] for r in rs]
@@ -2444,6 +2833,8 @@ def mesh_prove(src, want: bytes, smi, world=2):
              max_memory_allocated_per_rank=[r["max_memory_allocated"]
                                             for r in rs],
              stages_s_per_rank=[r["stages_s"] for r in rs],
+             fri_device_s_per_rank=[r["fri_device_s"] for r in rs],
+             fri_host_s_per_rank=[r["fri_host_s"] for r in rs],
              peak_bytes_at_mark_per_rank=[r["peak_bytes_at_mark"] for r in rs],
              nvidia_smi=smi)
     return launches
@@ -2512,6 +2903,10 @@ def main():
     ap.add_argument("--field-kernels", action="store_true",
                     help="after the build, run the field_kernels phase "
                          "(F1, F2, F3 against their plain versions) and stop")
+    ap.add_argument("--fri-fold", action="store_true",
+                    help="after the build, run the fri_fold and "
+                         "fri_host_fold phases (F5 and the host fold against "
+                         "the plain fold) and stop")
     ap.add_argument("--ref-codec", action="store_true",
                     help="after the build, run step 5 and the phases of the "
                          "reference codec, the DEBUG degree checks and the "
@@ -2553,13 +2948,18 @@ def main():
          host={k: os.path.relpath(v) for k, v in host_libs.items()},
          seconds=build_s, ptxas=ptxas,
          sass_instructions={k: sass_counts(v) for k, v in libs.items()})
-    assert {"blake2b", "ntt", "field", "quotients"} <= set(libs), libs
-    assert {"hashing", "vm", "quotients_host"} <= set(host_libs), host_libs
+    assert {"blake2b", "ntt", "field", "quotients", "fri"} <= set(libs), libs
+    assert {"hashing", "vm", "quotients_host", "fri_host"} <= set(
+        host_libs), host_libs
 
     full_src = counter_program(1 << LOG2_CYCLES)
-    if opts.field_kernels:
-        field_kernels()
-        quotient_kernel(full_src, smi)
+    if opts.field_kernels or opts.fri_fold:
+        if opts.field_kernels:
+            field_kernels()
+            quotient_kernel(full_src, smi)
+        if opts.fri_fold:
+            fri_fold(smi)
+            fri_host_fold(smi)
         print(smi, flush=True)
         return
     if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
@@ -2583,9 +2983,12 @@ def main():
         b2, b3 = check_ntt_kernels()
 
         # 4b. F1, F2, F3 against their plain versions; F4 against the
-        # op-by-op quotient stack
+        # op-by-op quotient stack; F5 and the host fold against the plain
+        # fold
         f_rows = field_kernels()
         f_rows["f4"] = quotient_kernel(full_src, smi)
+        f_rows["f5"] = fri_fold(smi)
+        fri_host_fold(smi)
 
     # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
     src = STREAM_SRC
@@ -2629,8 +3032,11 @@ def main():
         # count to its class groups (B1 against the resident prove's)
         assert [run["group"] for run in runs[1:]] == [8, 8, 2, 2, 8], [
             run["group"] for run in runs]
+        # F5: one launch a device fold round, 2^22 down to 2^14
+        assert [run["launches"]["f5"] for run in runs] == [9] * len(runs), [
+            run["launches"] for run in runs]
         streamed = {**{k: runs[1]["launches"][k]
-                       for k in ("b1", "f1", "f2", "f3", "f4")},
+                       for k in ("b1", "f1", "f2", "f3", "f4", "f5")},
                     **{k: runs[2]["launches"][k] for k in ("b2", "b3")}}
         assert min(streamed.values()) > 0, streamed
 
@@ -2647,7 +3053,7 @@ def main():
         print(smi, flush=True)
         return
     mesh_counts = {**{k: on_mesh["auto"][0][k]
-                      for k in ("b1", "f1", "f2", "f3", "f4")},
+                      for k in ("b1", "f1", "f2", "f3", "f4", "f5")},
                    "b2": on_mesh["mxu"][0]["b2"],
                    "b3": on_mesh["mxu"][0]["b3"]}
 
@@ -2716,6 +3122,20 @@ def main():
                       "BrainfuckStark._table_quotient_stack:797, staged as "
                       "comb_quot{ti} (stark.py:1391)",
         extra={"launches_mxu": counts["f4"]}))
+    # F5 stands for XLA's compiled fold round, fri.fold.n{N}.tree{t}: ms
+    # and bound at the top device round of the resident prove, N = 2^21
+    kernels.append(kernel_entry(
+        "fri_fold", "stark_brainfuck_tpu_torch/csrc/fri.cu",
+        "stark_brainfuck_tpu/protocol/fri.py:55", full["f5"],
+        streamed["f5"], mesh_counts["f5"], ref_counts["f5"], f_rows["f5"],
+        next(i for i, r in enumerate(f_rows["f5"])
+             if (r["form"], r["n"]) == ("resident round", 1 << LOG2_FRI)),
+        ("form", "n", "start_index"),
+        "no PyTorch call folds F_p^3 codewords",
+        replaces_note="no pl.pallas_call: the XLA-compiled fold round "
+                      "_fold_device:55 (fri.fold.n{N}.tree{t}), whose "
+                      "arithmetic is _fold_math:39",
+        extra={"launches_mxu": counts["f5"]}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

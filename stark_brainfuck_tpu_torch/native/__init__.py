@@ -1,6 +1,7 @@
 """The host runtime in C++, bound with ctypes: the Brainfuck trace recorder
-(`vm.cpp`, used by `vm/machine.py`) and the OpenMP BLAKE2b Merkle engine
-(`hashing.cpp`, used by `protocol/merkle.py`).
+(`vm.cpp`, used by `vm/machine.py`), the OpenMP BLAKE2b Merkle engine
+(`hashing.cpp`, used by `protocol/merkle.py`) and FRI's host-tail fold
+(`fri_host.cpp`, kernel F5's body, used by `ops/fri_kernels.py`).
 
 Each source builds at first use with `g++ -O3 -shared -fPIC -fopenmp` into
 `.torch_kernels/` at the repository root, one library per source keyed by
@@ -18,6 +19,10 @@ import functools
 from ..ops import cuda_build
 
 _SIGNATURES = {
+    "fri_host": {
+        "fri_fold_host": ([ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_void_p], None),
+    },
     "hashing": {
         "merkle_from_payloads": ([ctypes.c_char_p, ctypes.c_size_t,
                                   ctypes.c_size_t, ctypes.c_char_p], None),
@@ -51,3 +56,8 @@ def get_lib() -> ctypes.CDLL:
 def get_vm_lib() -> ctypes.CDLL:
     """The trace recorder (`vm.cpp`), built if needed."""
     return _get("vm")
+
+
+def get_fri_lib() -> ctypes.CDLL:
+    """FRI's host-tail fold (`fri_host.cpp`), built if needed."""
+    return _get("fri_host")

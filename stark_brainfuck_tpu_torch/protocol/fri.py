@@ -6,11 +6,14 @@ checks, explicit last-codeword interpolation), with each fold a whole-
 codeword tensor map and the last-codeword degree check a coset INTT.
 
 Device path: the codeword stays on the device while it is at least
-`host_min` long; each round's fold runs there and the next round's Merkle
-tree is built there (protocol/device_merkle.py, kernel B1 on the card).
-Shorter rounds finish on the host with hashlib trees. Only roots, query
-openings and the last codeword cross to the host; the transcript bytes are
-the host path's.
+`host_min` long; each round's fold runs there (`ops/fri_kernels.py`
+`fold`: kernel F5 on the card, one launch a round) and the next round's
+Merkle tree is built there (protocol/device_merkle.py, kernel B1 on the
+card). Shorter rounds, and every round of a prove without device trees,
+finish on the host: host trees, and the fold of `native/fri_host.cpp`
+(`fold_host`, F5's body under g++), as the JAX package finishes them in
+numpy. Only roots, query openings and the last codeword cross to the
+host; the transcript bytes are the host path's.
 
 Under the reference codec every round is folded and committed on the host:
 its leaves are pickled leaf objects (`interop/refcodec.py`), and each
@@ -21,7 +24,7 @@ Under a mesh (`parallel/mesh.py`) a round's codeword is in blocks, one a
 rank. The fold pairs index i with i + N/2, which live half the ranks apart:
 the rank that will own block j of the folded codeword pulls the two
 half-blocks it needs (`Mesh.fold_pairs`), so the result is again in
-contiguous blocks, and generates its 1/x_i row from its block's own start.
+contiguous blocks, and folds with 1/x_i from its block's own start.
 Round trees are built in blocks. Once a round is shorter than `host_min`,
 or than `MIN_BLOCK` leaves a rank, it is gathered and every rank carries on
 as one device does from there. The JAX package marks each fold and its tree
@@ -37,6 +40,7 @@ import numpy as np
 
 from ..convert import tensor_to_u64, u64_to_tensor
 from ..ops import field as f
+from ..ops import fri_kernels as fk
 from ..ops import ntt as nt
 from ..ops import xfield as xf
 from .channel import ProofStream, reject, sample_indices_fri
@@ -44,27 +48,10 @@ from .device_merkle import _HOST_CUT, DeviceMerkle, prefetch_trees
 from .merkle import Merkle
 
 
-def _fold_math(cw, alpha, ixs):
-    """new[i] = 2^-1·((1 + α/x_i)·cw[i] + (1 - α/x_i)·cw[i+N/2])
-    (ref fri.py:127-128). ixs = 1/x_i for the half-domain."""
-    half = cw.shape[0] // 2
-    a_over_x = xf.mul_base(alpha[None, :].expand(half, 3), ixs)
-    one = xf.ones((half,), cw.device)
-    lo = xf.mul(xf.add(one, a_over_x), cw[:half])
-    hi = xf.mul(xf.sub(one, a_over_x), cw[half:])
-    return f.mul(xf.add(lo, hi), f.const(f.h_inverse(2), cw))
-
-
 def _fold_device(codeword, alpha: tuple, omega: int, offset: int):
-    """One fold round where the codeword lies; 1/x_i = offset^-1·omega^-i
-    is generated by log-depth doubling on the same device."""
-    half = int(codeword.shape[0]) // 2
-    seeds = u64_to_tensor(
-        [f.h_inverse(offset), f.h_inverse(omega)], codeword.device
-    )
-    ixs = f.geometric_rows(seeds[0:1], seeds[1:2], half)[0]
-    alpha_t = u64_to_tensor(list(alpha), codeword.device)
-    return _fold_math(codeword, alpha_t, ixs)
+    """One fold round where the codeword lies: F5 on the card, the plain
+    torch fold on the CPU; 1/x_i = offset^-1·omega^-i."""
+    return fk.fold(codeword, alpha, omega, offset)
 
 
 def _fold_sharded(block, alpha: tuple, omega: int, offset: int, mesh):
@@ -72,12 +59,8 @@ def _fold_sharded(block, alpha: tuple, omega: int, offset: int, mesh):
     (n, 3) of the N = n·D values, the result its (n/2, 3) of the folded
     ones, indices [rank·n/2, (rank+1)·n/2)."""
     half = int(block.shape[0]) // 2
-    pairs = mesh.fold_pairs(block)
-    start = f.h_mul(f.h_inverse(offset),
-                    f.h_pow(f.h_inverse(omega), mesh.rank * half))
-    seeds = u64_to_tensor([start, f.h_inverse(omega)], block.device)
-    ixs = f.geometric_rows(seeds[0:1], seeds[1:2], half)[0]
-    return _fold_math(pairs, u64_to_tensor(list(alpha), block.device), ixs)
+    return fk.fold(mesh.fold_pairs(block), alpha, omega, offset,
+                   start_index=mesh.rank * half)
 
 
 class _DeviceTreeLeaves:
@@ -143,11 +126,10 @@ class _LazyLeaves:
         return tuple(int(v) for v in self.codeword[i])
 
 
-def _host_tree(codeword) -> Merkle:
+def _host_tree(words: np.ndarray) -> Merkle:
+    """The host tree of a round's codeword, from its u64 view."""
     return Merkle.from_buffer(
-        tensor_to_u64(codeword).astype("<u8").tobytes(), 24,
-        int(codeword.shape[0]),
-    )
+        words.astype("<u8", copy=False).tobytes(), 24, int(words.shape[0]))
 
 
 class Fri:
@@ -203,13 +185,15 @@ class Fri:
         if not native:
             assert not (on_device or sharded or tree0 is not None), (
                 "a non-native codec commits with host trees only")
-            codeword = codeword.cpu()
         trees: List = []
         lengths: List[int] = []
         leaf_objs: List = []
         if sharded and not (on_device and self.domain.length >= self.host_min):
             codeword = mesh.all_gather(codeword)
             sharded = False
+        if not on_device:
+            # every round is a host round
+            codeword = codeword.cpu()
 
         # per-round wall time (commit side), surfaced as fri_round_s
         self.last_round_s: List[float] = []
@@ -236,8 +220,9 @@ class Fri:
                 tree = DeviceMerkle(codeword, mesh=mesh if sharded else None)
                 objs = _DeviceTreeLeaves(tree)
             elif native:
-                objs = _LazyLeaves(tensor_to_u64(codeword))
-                tree = _host_tree(codeword)
+                words = tensor_to_u64(codeword)
+                objs = _LazyLeaves(words)
+                tree = _host_tree(words)
             else:
                 if r == 0 and leaf_objs0 is not None:
                     objs = leaf_objs0
@@ -264,8 +249,10 @@ class Fri:
                     # codeword and goes on as one device does
                     codeword = mesh.all_gather(codeword)
                     sharded = False
-            else:
+            elif on_device:
                 codeword = _fold_device(codeword, alpha, omega, offset)
+            else:
+                codeword = fk.fold_host(codeword, alpha, omega, offset)
             if on_device and half >= self.host_min and half > _HOST_CUT:
                 # the next round stays on the device: build its tree now
                 pending_tree = DeviceMerkle(
