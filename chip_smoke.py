@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
                           [--stream-log2-cycles K] [--field-kernels]
-                          [--fri-fold]
+                          [--fri-fold] [--turns PARENT_DIR]
                           [--ref-codec] [--mesh [RANKS]]
 
 Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
@@ -36,22 +36,27 @@ line each; any failure raises and exits non-zero:
      twiddle broadcast and on every pair of edge words; F2 (F_p^3 mul,
      mul_base) on (2^21, 3) codewords, contiguous and in the extension
      LDE's strided column layout, and on every pair of edge elements; F3
-     (`_acc_group`) on all eight groups of the prove (base 16 terms,
-     extension 9, each table's quotients, the 2 permutation quotients) as
-     the resident prove hands them over at N = 2^21 (the LDE's column
+     (`_acc_group`) on the prove's two groups (base 16 terms, extension
+     9) and on the six that F4 now weighs itself (each table's quotients,
+     the 2 permutation quotients: the parent's form, still held to the
+     plain version) as the resident prove hands them over at N = 2^21 (the LDE's column
      views, no concatenation) and as a streamed class does at S = 2^17 and
      S = 2^21, at ragged n (2^17 + 37, 1,000), with one term, and on a
      group of edge weights, ratios and starts; each also at every term
      split, with the card's launch plan (blocks an SM holds, registers),
      which must equal `field_kernels.acc_geometry`; quotient_kernel: F4
-     (csrc/quotients.cu, each table's quotients in one launch) against
-     the op-by-op stack `_table_quotient_stack_plain`, exactly, for all
-     five tables, on the 2^15-cycle counter's own LDE columns, challenges,
-     terminals and zerofier inverses (recorded from one prove): resident
-     at N = 2^21, as a streamed class (class 1 of 16, S = 2^17, row shift
-     ud / 16) and with the next row as columns rolled by the caller (rot
-     0), each launched once and counted, timed beside the plain stack and
-     bounded by `quotient_work`; fri_fold: F5 (csrc/fri.cu, one FRI fold
+     (csrc/quotients.cu, every table's quotients and the two permutation
+     quotients weighed into the combination in one launch) against the
+     plain function `_quotient_combination_plain` (the stacks op by op,
+     weighed by F3's plain version), exactly, on the 2^15-cycle counter's
+     own operands (recorded from one prove): resident at N = 2^21, as a
+     streamed class (class 1 of 16, S = 2^17, row shifts ud / 16) and with
+     the next row as columns rolled by the caller (rot 0), each launched
+     once and counted, timed beside the plain function with the card's
+     plan and bounded by `quotient_work`; beside them the rest of the
+     parent's form on the same operands (F3 on each table's stack and on
+     the permutation stack, which is built op by op), whose per-table F4
+     launches the parent's own run times; fri_fold: F5 (csrc/fri.cu, one FRI fold
      round in one launch) against the plain fold (`fold_plain`, op by op
      on F1/F2), exactly, at every device round of the full-size prove (N =
      2^21 .. 2^14), at the first round of the FRI 2^22 and 2^26 streamed
@@ -72,16 +77,16 @@ line each; any failure raises and exits non-zero:
      the largest resident one) on the default NTT path (full_prove) and
      with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
-     launch counts (B1, B2, B3 and F1-F5; F1-F3 above 0, F4 exactly 5
-     a quotient evaluation on every prove of the card: one resident, one a
-     class streamed, and F5 exactly once a device fold round: 8 here, 9 at
+     launch counts (B1, B2, B3 and F1-F5; F1-F3 above 0, F4 exactly once
+     a quotient evaluation on every prove of the card, after one prologue:
+     one resident, one a class streamed, and F5 exactly once a device fold round: 8 here, 9 at
      FRI 2^22, 13 at 2^26, one a device round on every other prove),
      stage times, FRI's rounds summed on the device and on the host, peak
      device memory at each stage mark and
      the prover's NTT butterfly, hashed leaf and extended row counts and
      rates (so too each stream_prove below); all proofs byte-identical;
-     and in the same turns the default path with the quotient stacks op by
-     op on F1/F2 (full_prove_plain_quotients, F4's baseline: no F4, and
+     and in the same turns the default path with the quotient combination
+     op by op (full_prove_plain_quotients, F4's baseline: no F4, and
      exactly the F1/F2 launches of `quotient_dispatches` more) and with
      every fold op by op (full_prove_plain_fold, F5's and the host fold's
      baseline: no F5, and exactly the F1/F2 launches of `fold_dispatches`
@@ -111,7 +116,7 @@ line each; any failure raises and exits non-zero:
      prove's count gives (`streamed_b1`), with launch counts, the group,
      the merkle and reopen times, stage times and peak memory per prove
      beside the ungrouped prove's (`BASELINE_STREAM`), then the 32-class
-     default prove again with the quotient stacks op by op (F4's
+     default prove again with the quotient combination op by op (F4's
      baseline, as in step 6);
   8. the other paths of the main path's kernels: ref_codec_bytes: the
      N=16384 program with `codec="ref"` (host trees over pickled leaf
@@ -141,7 +146,8 @@ line each; any failure raises and exits non-zero:
      distributed transform's local DFTs (19 and 27 rows), B3 with the rank's
      offset tables, B1 at the block's leaf, salt and tree-level sizes, and
      F4 on the block with the next row rolled across the ranks, each
-     against its plain version, exactly; mesh_bytes: the N=16384
+     against its plain version, exactly (F4 on the rank's block of
+     the combination); mesh_bytes: the N=16384
      program with `mesh_shape` 2 and 4, on cuda and on cpu, default and mxu, every rank's proof equal to step
      5's single-device proof, one verified; mesh_prove: the 2^15-cycle
      counter (FRI 2^21) on 2 ranks, default and mxu, a warm-up and a timed
@@ -162,7 +168,12 @@ one each and the mesh runs on nccl. `--b2-sweep` and `--b2-parts` are
 measuring aids for kernel B2: after the
 build they time it under several tile shapes, or with its arithmetic or
 its memory traffic cut out of the source, print one JSON line each and
-stop before the checks. `--stream-log2-cycles K` is the same kind of aid
+stop before the checks. `--turns PARENT_DIR` compares this tree with
+another checkout of the repo (its parent commit) on the same card: the
+quotient_kernel phase, step 6's full_proves and the 2^16-cycle prove in
+32 classes, run by each tree's own chip_smoke.py in a process of its own,
+in turns parent, this tree, this tree, parent; every JSON line is printed
+with its turn and tree, and nothing else runs. `--stream-log2-cycles K` is the same kind of aid
 for the streamed prover: after the build it proves a counter of 2^K cycles
 (FRI 2^(K+6)) with 32 classes on both NTT paths, holds the two proofs equal
 and verified and the B2/B3 launches to the class transforms, prints one
@@ -333,11 +344,10 @@ def sass_counts(library: str):
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
         short = next((k for k in ("blake2b_words_kernel", "subntt_kernel",
-                                  "twiddle_outer_kernel", "fri_fold_kernel")
+                                  "twiddle_outer_kernel", "fri_fold_kernel",
+                                  "quotients_prologue_kernel",
+                                  "quotients_kernel")
                       if k in name), name)
-        table = re.search(r"Quotients([A-Z][a-z]+)", name)
-        if "quotients_kernel" in name and table:
-            short = f"quotients_kernel<{table.group(1)}>"
         full = re.findall(
             r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
             chunk, flags=re.M)
@@ -708,8 +718,9 @@ def acc_tables():
 
 
 def acc_stacks(tables, n, seed, streamed):
-    """The prove's eight F3 groups at n positions, in the layouts the
-    prover hands them over: {group: (parts, extension?)}. Resident, the
+    """The prove's two F3 groups at n positions, in the layouts the
+    prover hands them over, and the six groups of quotient stacks it took
+    before F4 weighed them: {group: (parts, extension?)}. Resident, the
     base group is one row slice of the base LDE block (3 randomizer rows,
     then the columns) a table and the extension group one `movedim` view
     of the extension LDE's rows a table, an empty table's columns a
@@ -954,82 +965,120 @@ def f3_case(stark, parts, ext, length, seed, time_plain, weights=None,
 
 
 # ---------------------------------------------------------------------------
-# F4: each table's quotients in one launch (csrc/quotients.cu)
+# F4: every table's quotients and the permutation quotients, weighed into
+# the combination in one launch (csrc/quotients.cu)
 # ---------------------------------------------------------------------------
 
-# the streamed class the quotient_kernel phase cuts from the resident LDE:
-# class 1 of 16 at FRI 2^21, S = 2^17 positions, as a 32-class prove at FRI
-# 2^22 hands F4 its classes
+# the streamed class the quotient_kernel phase cuts from the resident
+# operands: class 1 of 16 at FRI 2^21, S = 2^17 positions, as a 32-class
+# prove at FRI 2^22 hands F4 its classes
 QUOTIENT_CLASSES = 16
+# the permutation quotients: a position's 2 x (an F_p^3 sub and a mul_base)
+PERMUTATION_OPS = 2 * (3 * GL_SUB_OPS + 3 * GL_MUL_OPS)
 
 
-def quotient_work(tables, n: int):
-    """(bytes, Ops) of F4 on `tables` (table objects of a stark) at n
-    positions, from each table's lowered program (`quotient_kernels.
-    row_counts`): each column and zerofier word read once, each output
-    word written once, and the Goldilocks multiplies, adds and subs of a
-    position (the values that depend on no column, once a block, left
-    out)."""
+def quotient_work(bfs, args):
+    """(bytes, Ops) of one F4 launch on `_quotient_combination`'s arguments
+    `args` (acc, base_cws, ext_cws, challenges, terminals, zinvs, w_pairs,
+    ratios, starts, slots[, uds, next-row columns]): each input word read
+    once (a column or zerofier inverse at position stride 0 reads one
+    word, a tensor two tables share is read once), acc read and written,
+    the power tables written and read; and a position's Goldilocks
+    operations of each table's lowered program (`quotient_kernels.
+    row_counts`: the values that depend on no column, once a launch, left
+    out), of the permutation quotients, of the weighing of every quotient
+    (ACC_TERM_OPS for a base or an extension one) and of the position's
+    reduction (ACC_POSITION_OPS)."""
+    from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
-    nbytes, ops = 0, Ops()
-    for t in tables:
+    acc, base_cws, ext_cws, _, _, zinvs, w_pairs, ratios = args[:8]
+    extra = args[11] if len(args) > 11 else []
+    n = int(acc.shape[0])
+    seen, nbytes = set(), 48 * n + 8 * w_pairs.numel()
+    nbytes += 16 * int(ratios.shape[0]) * FK.acc_table_words(n)
+    for x in (*base_cws, *ext_cws, *(z for zs in zinvs for z in zs.values()),
+              *extra):
+        # a zerofier inverse is one column, a column group one a row
+        for c in [x] if x.dim() <= 1 else list(x):
+            key = (c.data_ptr(), tuple(c.stride()))
+            if key not in seen:
+                seen.add(key)
+                moves = c.dim() and c.stride()[0]
+                nbytes += 8 * (c.numel() if moves or not c.dim()
+                               else c[0].numel())
+    ops = ACC_POSITION_OPS + PERMUTATION_OPS + 2 * ACC_TERM_OPS[True]
+    for t in bfs.tables:
         c = QK.row_counts(QK.lower(QK.program(t)))
-        nbytes += 8 * (c["read"] + c["written"]) * n
         ops += (c["mul"] * GL_MUL_OPS + c["add"] * GL_ADD_OPS
-                + c["sub"] * GL_SUB_OPS) * n
-    return nbytes, ops
+                + c["sub"] * GL_SUB_OPS
+                + c["ext_outputs"] * ACC_TERM_OPS[True]
+                + c["base_outputs"] * ACC_TERM_OPS[False])
+    return nbytes, ops * n
 
 
 def quotient_dispatches(bfs, evaluations: int = 1):
     """{"f1": F1 launches, "f2": F2 launches} that `evaluations` op-by-op
-    evaluations of the five tables' quotient stacks make (`interp.
-    dispatches` of each table's program): the launches F4 replaces."""
+    quotient combinations make (`interp.dispatches` of each table's
+    program, and the permutation quotients' 2 subs and 2 mul_base; the
+    weighing is plain torch): the launches F4 replaces."""
     from stark_brainfuck_tpu_torch.models.interp import dispatches
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
 
     d = [dispatches(QK.program(t)) for t in bfs.tables]
-    return {"f1": evaluations * sum(x["add"] + x["sub"] + x["mul"] for x in d),
-            "f2": evaluations * sum(x["xmul"] + x["xmul_base"] for x in d)}
+    return {"f1": evaluations * (2 + sum(x["add"] + x["sub"] + x["mul"]
+                                         for x in d)),
+            "f2": evaluations * (2 + sum(x["xmul"] + x["xmul_base"]
+                                         for x in d))}
 
 
 def plain_quotients(bfs):
-    """bfs with its quotient stacks evaluated op by op (F1/F2), the form
-    F4 replaced: the baseline of the stage_c comparisons."""
-    bfs._table_quotient_stack = bfs._table_quotient_stack_plain
+    """bfs with its quotient combination evaluated op by op (the stacks on
+    F1/F2, weighed by F3's plain version), the form F4 replaced: the
+    baseline of the stage_c comparisons."""
+    bfs._quotient_combination = bfs._quotient_combination_plain
     return bfs
 
 
 def quotient_kernel(src, smi):
-    """F4 against `_table_quotient_stack_plain` (`Table.quotients` op by op
-    on F1/F2) on the card, exactly, for all five tables, on the 2^15-cycle
-    counter's own operands: one prove records every `_table_quotient_stack`
-    call (the LDE's column views, the challenges and terminals, the
-    zerofier inverses). Three forms: resident at N = 2^21 (the next row at
-    the unit distance), a streamed class (class 1 of QUOTIENT_CLASSES, S =
-    N / B, the row shift ud / B, in the streamed prover's layouts), and the
-    next row as columns rolled by the caller with rot 0 (the mesh's form;
-    the ranks run it in mesh_kernels). Each table's launch is counted (one
-    F4, no F1/F2), timed (`graph_ms`, cold L2; `call_ms` CUDA events from
-    the host) beside the plain stack (CUDA events: it allocates host
-    constants, which a graph cannot capture), with its bound
-    (`quotient_work`); an "all five" row per form sums one evaluation.
-    Returns the rows."""
+    """F4 against `_quotient_combination_plain` on the card, exactly, on
+    the 2^15-cycle counter's own operands: one prove records its
+    `_quotient_combination` call (acc after F3's groups, the LDE's column
+    views, the challenges and terminals, the zerofier inverses, the
+    weights, each distinct shift's progression). Three forms: resident at
+    N = 2^21 (each next row at the table's unit distance), a streamed class
+    (class 1 of QUOTIENT_CLASSES, S = N / B, each row shift ud / B, in the
+    streamed prover's layouts, the class's x^s progressions), and the next
+    rows as columns rolled by the caller with rot 0 (the mesh's form; the
+    ranks run it in mesh_kernels). Each is launched once and counted (one
+    F4 after one prologue, nothing else), timed (`graph_ms`, cold L2;
+    `call_ms` CUDA events from the host) beside the plain function (CUDA
+    events: it uploads host constants), with the card's plan and its bound
+    (`quotient_work`). Then, resident and for the class, the rest of the
+    parent's form on the same operands, timed alone (`graph_ms`): F3 on
+    each table's quotient stack (made op by op, untimed) and the
+    permutation stack op by op (2 F1, 2 F2, torch.stack) with its F3
+    launch; the parent's per-table F4 launches are its own run's
+    quotient_kernel "all five" rows. Returns the rows."""
+    from stark_brainfuck_tpu_torch.ops import field as F
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
+    from stark_brainfuck_tpu_torch.ops import xfield as X
 
     bfs, args = make_stark(src, 0, "cuda")
     calls = []
-    inner = bfs._table_quotient_stack
+    inner = bfs._quotient_combination
 
-    def record(ti, *operands, **kw):
-        calls.append((ti, operands))
-        return inner(ti, *operands, **kw)
+    def record(acc, *operands):
+        calls.append((acc.clone(), *operands))
+        return inner(acc, *operands)
 
-    bfs._table_quotient_stack = record
+    bfs._quotient_combination = record
     proof = bfs.prove(*args)
-    del bfs._table_quotient_stack
+    del bfs._quotient_combination
     assert bfs.verify(proof), bfs.last_rejection
-    assert [c[0] for c in calls] == list(range(5)), [c[0] for c in calls]
+    # one call, with no row shifts of a class: each table's own
+    assert [len(c) for c in calls] == [10], [len(c) for c in calls]
+    acc, base_cws, ext_cws, ch, tm, zinvs, w, r, s, slots = calls[0]
     N = bfs.fri.domain.length
     B = QUOTIENT_CLASSES
 
@@ -1045,74 +1094,106 @@ def quotient_kernel(src, smi):
             return x[:, 1::B].movedim(-1, 1).contiguous().movedim(1, -1)
         return x[1::B] if x.dim() else x
 
-    forms = {}
-    for ti, (base, ext, ch, tm, zinv) in calls:
-        t = bfs.tables[ti]
+    # class 1's x^s progressions: start·ratio, then ratio^B
+    r_cls = r
+    for _ in range(B.bit_length() - 1):
+        r_cls = F.mul_plain(r_cls, r_cls)
+    resident = (acc, base_cws, ext_cws, ch, tm, zinvs, w, r, s, slots, None)
+    uds = [t.unit_distance(N) // B for t in bfs.tables]
+    for t, ud in zip(bfs.tables, uds):
+        assert ud * B == t.unit_distance(N), (t.name, ud)
+    streamed = (acc[1::B].contiguous(), [cls(x) for x in base_cws],
+                [cls(x) for x in ext_cws], ch, tm,
+                [{k: cls(v) for k, v in z.items()} for z in zinvs], w,
+                r_cls, F.mul_plain(s, r), slots, uds)
+    progs = [bfs._quotient_program(ti) for ti in range(len(bfs.tables))]
+    rolled_tables = []
+    for t, b, e, z in zip(bfs.tables, base_cws, ext_cws, zinvs):
         ud = t.unit_distance(N)
-        assert ud % B == 0, (t.name, ud)
-        rolled = (torch.roll(base, -ud, 1), torch.roll(ext, -ud, 1))
-        forms.setdefault("resident", []).append((
-            lambda ti=ti, o=(base, ext, ch, tm, zinv): bfs._table_quotient_stack(
-                ti, *o),
-            lambda ti=ti, o=(base, ext, ch, tm, zinv):
-                bfs._table_quotient_stack_plain(ti, *o), N, t))
-        zc = {k: cls(v) for k, v in zinv.items()}
-        forms.setdefault("streamed class", []).append((
-            lambda ti=ti, o=(cls(base), cls(ext), ch, tm, zc), u=ud // B:
-                bfs._table_quotient_stack(ti, *o, ud=u),
-            lambda ti=ti, o=(cls(base), cls(ext), ch, tm, zc), u=ud // B:
-                bfs._table_quotient_stack_plain(ti, *o, ud=u), N // B, t))
-        forms.setdefault("rolled next, rot 0", []).append((
-            lambda ti=ti, o=(base, ext, ch, tm, zinv), r=rolled:
-                QK.quotient_stack(ti, bfs._quotient_program(ti), *o, 0, *r),
-            lambda ti=ti, o=(base, ext, ch, tm, zinv):
-                bfs._table_quotient_stack_plain(ti, *o), N, t))
+        rolled_tables.append((b, e, z, 0, torch.roll(b, -ud, 1),
+                              torch.roll(e, -ud, 1)))
+    rolled_next = [x for tb in rolled_tables for x in tb[4:]]
+
+    def fused(operands):
+        return lambda a: bfs._quotient_combination(a, *operands[1:])
+
+    forms = {
+        "resident": (resident, fused(resident), resident),
+        "streamed class": (streamed, fused(streamed), streamed),
+        "rolled next, rot 0": (
+            resident + (rolled_next,),
+            lambda a: QK.quotient_combination(a, progs, rolled_tables, ch, tm,
+                                              w, r, s, slots),
+            resident),
+    }
     rows = []
-    for form, cases in forms.items():
-        for run, run_plain, n, t in cases:
-            reset_counts()
-            got = run()
-            counts = read_counts()
-            assert counts == {**{k: 0 for k in counts}, "f4": 1}, (
-                form, t.name, counts)
-            want = run_plain()
-            torch.cuda.synchronize()
-            assert got.shape == want.shape, (form, t.name, got.shape)
-            err = max_abs_err(got.reshape(-1, 1), want.reshape(-1, 1))
-            assert err == 0.0, f"F4 differs from the plain stack: {form}, {t.name}"
-            del got, want
-            nbytes, ops = quotient_work([t], n)
-            bound_ms, bound_by = bound(nbytes, ops)
-            row = {"kernel": "f4", "form": form, "table": t.name, "n": n,
-                   "quotients": len(QK.program(t).outputs),
-                   "max_abs_err": err, "ms": graph_ms(run),
-                   "plain_ms": cuda_ms(run_plain, reps=3),
-                   "call_ms": cuda_ms(run, reps=10),
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bytes": nbytes, "ops": ops.as_dict()}
-            emit("quotient_kernel", **row)
-            rows.append(row)
-        n = cases[0][2]
-        nbytes, ops = quotient_work(bfs.tables, n)
+    for form, (operands, run, plain_of) in forms.items():
+        n = int(operands[0].shape[0])
+        reset_counts()
+        got = run(operands[0].clone())
+        counts = read_counts()
+        assert counts == {**{k: 0 for k in counts}, "f4": 1,
+                          "f4_prologue": 1}, (form, counts)
+        want = bfs._quotient_combination_plain(plain_of[0].clone(),
+                                               *plain_of[1:])
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (n, 3), (form, got.shape)
+        err = max_abs_err(got, want)
+        assert err == 0.0, f"F4 differs from the plain function: {form}"
+        del got, want
+        nbytes, ops = quotient_work(bfs, operands)
         bound_ms, bound_by = bound(nbytes, ops)
-        every = [r for r in rows if r["form"] == form]
-
-        def all_five(fns):
-            for fn in fns:
-                fn()
-
-        row = {"kernel": "f4", "form": form, "table": "all five", "n": n,
-               "quotients": sum(r["quotients"] for r in every),
-               "max_abs_err": 0.0,
-               "ms": graph_ms(lambda: all_five([c[0] for c in cases])),
-               "plain_ms": cuda_ms(
-                   lambda: all_five([c[1] for c in cases]), reps=3),
-               "call_ms": cuda_ms(lambda: all_five([c[0] for c in cases]),
-                                  reps=10),
+        scratch = operands[0].clone()
+        row = {"kernel": "f4", "form": form, "n": n,
+               "terms": len(slots), "shifts": len(set(slots)),
+               "max_abs_err": err, "ms": graph_ms(lambda: run(scratch)),
+               "plain_ms": cuda_ms(lambda: bfs._quotient_combination_plain(
+                   plain_of[0], *plain_of[1:]), reps=3),
+               "call_ms": cuda_ms(lambda: run(scratch), reps=10),
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "ops": ops.as_dict(), "nvidia_smi": smi}
+               "ops": ops.as_dict(),
+               "plan": QK.plan(n, len(set(slots))), "nvidia_smi": smi}
         emit("quotient_kernel", **row)
         rows.append(row)
+        del scratch
+    for form in ("resident", "streamed class"):
+        operands = forms[form][0]
+        a, bases, exts, _, _, zs, _, ratios, starts, _, u = operands
+        n = int(a.shape[0])
+        per_term = torch.tensor(slots, device=a.device)
+        ratios, starts = ratios[per_term], starts[per_term]
+        stacks = [bfs._table_quotient_stack_plain(
+            ti, bases[ti], exts[ti], ch, tm, zs[ti], None if u is None
+            else u[ti]) for ti in range(len(bfs.tables))]
+        scratch = a.clone()
+
+        def parent_rest():
+            pos = 0
+            for stack in stacks:
+                sl = slice(pos, pos + stack.shape[0])
+                bfs._acc_group(scratch, [stack], w[sl], ratios[sl],
+                               starts[sl], length=n)
+                pos = sl.stop
+            zb = zs[0]["boundary"]
+            pa = torch.stack([X.mul_base(X.sub(exts[0][0], exts[1][0]), zb),
+                              X.mul_base(X.sub(exts[0][1], exts[2][0]), zb)])
+            bfs._acc_group(scratch, [pa], w[pos:], ratios[pos:],
+                           starts[pos:], length=n)
+
+        reset_counts()
+        parent_rest()
+        counts = read_counts()
+        assert (counts["f3"], counts["f1"], counts["f2"], counts["f4"]) == (
+            len(stacks) + 1, 2, 2, 0), counts
+        row = {"kernel": "f4 parent form without its F4", "form": form,
+               "n": n, "ms": graph_ms(parent_rest),
+               "parts": "F3 on each table's stack and on the permutation "
+                        "stack, the permutation stack op by op (2 F1, 2 F2, "
+                        "torch.stack)", "launches": counts,
+               "nvidia_smi": smi}
+        emit("quotient_kernel", **row)
+        rows.append(row)
+        del stacks, scratch
     del calls, forms, bfs
     return rows
 
@@ -1702,7 +1783,8 @@ def profile_prove(bfs, args, out_dir):
                          if name in e.key) / 1e6
                for name in ("gl_binary_kernel", "xf_binary_kernel",
                             "acc_group_kernel", "acc_powers_kernel",
-                            "quotients_kernel", "fri_fold_kernel")}
+                            "quotients_kernel", "quotients_prologue_kernel",
+                            "fri_fold_kernel")}
     # the copies of torch.cat (CatArrayBatchedCopy kernels)
     cat_s = sum(e.self_device_time_total for e in events
                 if "CatArray" in e.key) / 1e6
@@ -1736,6 +1818,7 @@ def reset_counts():
 
     B.LAUNCHES = 0
     QK.LAUNCHES_QUOTIENT = 0
+    QK.LAUNCHES_QUOTIENT_PROLOGUE = 0
     FRI.LAUNCHES_FOLD = 0
     K.LAUNCHES_SUBNTT = 0
     K.LAUNCHES_TWIDDLE = 0
@@ -1746,8 +1829,8 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches of B1, B2, B3 and F1-F5 (and F3's power tables) since the
-    last reset_counts()."""
+    """Launches of B1, B2, B3 and F1-F5 (and F3's power tables, F4's
+    prologue) since the last reset_counts()."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
     from stark_brainfuck_tpu_torch.ops import fri_kernels as FRI
@@ -1758,13 +1841,17 @@ def read_counts():
             "b3": K.LAUNCHES_TWIDDLE, "f1": FK.LAUNCHES_ELEMENTWISE,
             "f2": FK.LAUNCHES_XFIELD, "f3": FK.LAUNCHES_ACC,
             "f3_powers": FK.LAUNCHES_ACC_POWERS,
-            "f4": QK.LAUNCHES_QUOTIENT, "f5": FRI.LAUNCHES_FOLD}
+            "f4": QK.LAUNCHES_QUOTIENT,
+            "f4_prologue": QK.LAUNCHES_QUOTIENT_PROLOGUE,
+            "f5": FRI.LAUNCHES_FOLD}
 
 
 def check_f4(counts, evaluations: int, where):
-    """F4 launched once a table for each evaluation of the quotients (one a
-    resident prove, one a class streamed), and F1-F3 launched."""
-    assert counts["f4"] == 5 * evaluations, (where, evaluations, counts)
+    """F4 launched once for each evaluation of the quotient combination
+    (one a resident prove, one a class streamed), each after its prologue,
+    and F1-F3 launched."""
+    assert counts["f4"] == counts["f4_prologue"] == evaluations, (
+        where, evaluations, counts)
     assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (where, counts)
 
 
@@ -1828,13 +1915,15 @@ def streamed_b1(resident_b1: int, B: int, G: int) -> int:
 
 
 def stage_c(bfs, counts):
-    """A prove's F3 and F4 launches (and F3's power tables'), stage_c
-    seconds and peak device bytes at stage_c's mark."""
+    """A prove's F3 and F4 launches (and F3's power tables', F4's
+    prologues), stage_c seconds and peak device bytes at stage_c's mark."""
     m = bfs.last_metrics
     assert counts["f3_powers"] == counts["f3"], counts
+    assert counts["f4_prologue"] == counts["f4"], counts
     assert m["quotient_launches"] == counts["f4"], (m, counts)
     return {"f3_launches": counts["f3"], "f4_launches": counts["f4"],
             "f3_power_launches": counts["f3_powers"],
+            "f4_prologue_launches": counts["f4_prologue"],
             "stage_c_s": m["stages_s"].get(STAGE_C),
             "peak_bytes_at_stage_c": m.get("peak_bytes_at_mark", {}).get(
                 STAGE_C)}
@@ -1842,7 +1931,7 @@ def stage_c(bfs, counts):
 
 def full_proves(src, smi):
     """The full-size prove on the default and the mxu NTT path, on the
-    default path with the quotient stacks op by op on F1/F2
+    default path with the quotient combination op by op
     (`plain_quotients`, the baseline of F4), and on the default path with
     every fold op by op (`plain_fold`, the baseline of F5 and of the host
     fold): a warm-up prove and verify for each, then two timed proves each,
@@ -1851,7 +1940,7 @@ def full_proves(src, smi):
     same state. Launch counts are set to 0 just before each timed prove and
     read just after it; stage times, the FRI rounds' device and host sums
     (`fri_split`) and peak bytes are kept per prove. Every proof must equal
-    the default path's warm-up bytes; F4 launches 5 times a prove and F5
+    the default path's warm-up bytes; F4 launches once a prove and F5
     once a device fold round (`check_fri`: 8 at FRI 2^21); each baseline
     launches none of its kernel and exactly `quotient_dispatches` or
     `fold_dispatches` more F1 and F2 kernels. Returns ({path: (stark,
@@ -1897,7 +1986,7 @@ def full_proves(src, smi):
         base = (runs["full_prove"] or [{"launches": counts}])[0]["launches"]
         if phase == "full_prove_plain_quotients":
             moved = quotient_dispatches(bfs)
-            assert counts == {**base, "f4": 0,
+            assert counts == {**base, "f4": 0, "f4_prologue": 0,
                               "f1": base["f1"] + moved["f1"],
                               "f2": base["f2"] + moved["f2"]}, (
                 counts, base, moved)
@@ -2198,7 +2287,7 @@ def stream_proves(log2_cycles, smi, plans):
     """A counter of 2^log2_cycles cycles proved once for each (kind, config)
     of `plans`: "streamed", "resident" (the same claim with `stream_min`
     raised past its domain), or "streamed_plain_quotients" (streamed, the
-    quotient stacks op by op on F1/F2: F4's baseline, held to exactly
+    quotient combination op by op: F4's baseline, held to exactly
     `quotient_dispatches` more F1/F2 launches than the first streamed prove
     of its classes and backend, and no F4).
     Each with the launch counts set to 0 just before it and read just
@@ -2242,7 +2331,7 @@ def stream_proves(log2_cycles, smi, plans):
                           if r["kind"] == "streamed" and r["classes"] == B
                           and r["ntt_backend"] == backend)
             moved = quotient_dispatches(bfs, B)
-            assert counts == {**f4_run, "f4": 0,
+            assert counts == {**f4_run, "f4": 0, "f4_prologue": 0,
                               "f1": f4_run["f1"] + moved["f1"],
                               "f2": f4_run["f2"] + moved["f2"]}, (
                 counts, f4_run, moved)
@@ -2558,16 +2647,18 @@ def rank_kernels(mesh, payload):
     against the u64 network. B3: the twiddle step with this rank's tables
     (its column offset in the hi factor) against `twiddle_outer_plain` and
     against the field multiply by the rank's plain table. B1: the block's
-    leaves, salts and tree levels against `blake2b_words_plain`. F4: each
-    table's quotients of a mesh stark of payload["src"] on seeded columns
-    of the rank's block, through the sharded branch of
-    `_table_quotient_stack` (the next row rolled across the ranks by
-    `mesh.roll`, then F4 with rot 0) against `_table_quotient_stack_plain`
-    (the same roll, then F1/F2). Times are not taken: the ranks share the
-    card."""
+    leaves, salts and tree levels against `blake2b_words_plain`. F4: the
+    quotient combination of a mesh stark of payload["src"] on seeded
+    columns, weights and progressions of the rank's block, through the
+    sharded branch of `_quotient_combination` (each next row rolled across
+    the ranks by `mesh.roll`, then F4 with rot 0) against
+    `_quotient_combination_plain` (the same rolls, then the stacks on
+    F1/F2 and the plain weighing). Times are not taken: the ranks share
+    the card."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
     from stark_brainfuck_tpu_torch.parallel import dntt
     from stark_brainfuck_tpu_torch.protocol import device_merkle as dm
 
@@ -2645,23 +2736,36 @@ def rank_kernels(mesh, payload):
     _, nb = bfs._block()
     ch = random_field(1, 33, 60)[0].view(11, 3)
     tm = random_field(1, 15, 61)[0].view(5, 3)
-    for ti, t in enumerate(bfs.tables):
-        base = random_field(t.base_width, nb, 62 + ti)
-        ext = random_field(3 * t.num_ext_columns, nb, 67 + ti).view(
-            t.num_ext_columns, 3, nb).movedim(1, -1)
-        zinv = {k: random_field(1, nb, 72 + 3 * ti + j)[0]
-                for j, k in enumerate(("boundary", "transition", "terminal"))}
-        reset_counts()
-        got = bfs._table_quotient_stack(ti, base, ext, ch, tm, zinv)
-        counts = read_counts()
-        assert counts == {**{k: 0 for k in counts}, "f4": 1}, (t.name, counts)
-        want = bfs._table_quotient_stack_plain(ti, base, ext, ch, tm, zinv)
-        assert torch.equal(got, want), (
-            f"F4 differs from the plain stack at rank {mesh.rank} ({t.name})")
-        out["cases"].append({"kernel": "quotients", "table": t.name, "n": nb,
-                             "rolled_across_ranks": t.unit_distance(N) > 0,
-                             "max_abs_err": 0.0})
-        del base, ext, got, want
+    bases = [random_field(t.base_width, nb, 62 + ti)
+             for ti, t in enumerate(bfs.tables)]
+    exts = [random_field(3 * t.num_ext_columns, nb, 67 + ti).view(
+        t.num_ext_columns, 3, nb).movedim(1, -1)
+        for ti, t in enumerate(bfs.tables)]
+    zinvs = [{k: random_field(1, nb, 72 + 3 * ti + j)[0]
+              for j, k in enumerate(("boundary", "transition", "terminal"))}
+             for ti in range(len(bfs.tables))]
+    progs = [bfs._quotient_program(ti) for ti in range(len(bfs.tables))]
+    T = QK.terms(progs)
+    slots, distinct = QK.distinct_shifts(
+        [ti % 13 for ti in range(T)])
+    w = random_field(2 * T, 3, 90).view(T, 2, 3)
+    ratios, starts = random_field(2, len(distinct), 91)
+    acc = random_field(nb, 3, 92)
+    operands = (bases, exts, ch, tm, zinvs, w, ratios, starts, slots)
+    reset_counts()
+    got = bfs._quotient_combination(acc.clone(), *operands)
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts}, "f4": 1, "f4_prologue": 1}, (
+        counts)
+    want = bfs._quotient_combination_plain(acc.clone(), *operands)
+    assert torch.equal(got, want), (
+        f"F4 differs from the plain function at rank {mesh.rank}")
+    out["cases"].append({
+        "kernel": "quotients", "n": nb, "terms": T, "shifts": len(distinct),
+        "rolled_across_ranks": [t.name for t in bfs.tables
+                                if t.unit_distance(N)],
+        "max_abs_err": 0.0})
+    del bases, exts, zinvs, got, want
     torch.cuda.synchronize()
     return out
 
@@ -2885,6 +2989,46 @@ def other_paths(native_proof, smi):
     return launches
 
 
+# what a tree runs in each turn of `--turns`, from its own checkout
+TURN_PHASES = """
+import sys
+sys.path.insert(0, ".")
+import chip_smoke as c
+from stark_brainfuck_tpu_torch.ops import cuda_build
+cuda_build.build()
+cuda_build.build_host()
+smi = c.smi_line()
+src = c.counter_program(1 << c.LOG2_CYCLES)
+c.quotient_kernel(src, smi)
+c.full_proves(src, smi)
+c.stream_proves(c.STREAM_LOG2_CYCLES, smi,
+                [("streamed", {"stream_classes": c.STREAM_CLASSES[0]})])
+"""
+
+
+def turns(parent: str):
+    """`--turns`: TURN_PHASES in the parent checkout and in this one, in
+    turns parent, this tree, this tree, parent, each in a process of its
+    own (so each tree runs its own code and builds its own kernels); each
+    JSON line a turn prints, tagged with the turn and the tree. A failed
+    turn raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    if not os.path.exists(os.path.join(parent, "chip_smoke.py")):
+        raise SystemExit(f"--turns: no chip_smoke.py in {parent}")
+    for k, (tree, root) in enumerate((("parent", parent), ("change", here),
+                                      ("change", here), ("parent", parent))):
+        proc = subprocess.run([sys.executable, "-c", TURN_PHASES], cwd=root,
+                              capture_output=True, text=True, timeout=1500)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"turn": k, "tree": tree,
+                                  **json.loads(line)}), flush=True)
+        if proc.returncode:
+            print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+            raise SystemExit(f"--turns: turn {k} ({tree}) failed")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -2907,6 +3051,10 @@ def main():
                     help="after the build, run the fri_fold and "
                          "fri_host_fold phases (F5 and the host fold against "
                          "the plain fold) and stop")
+    ap.add_argument("--turns", metavar="PARENT_DIR",
+                    help="run quotient_kernel, full_proves and the 32-class "
+                         "streamed prove of PARENT_DIR's checkout and of "
+                         "this one in turns, and stop")
     ap.add_argument("--ref-codec", action="store_true",
                     help="after the build, run step 5 and the phases of the "
                          "reference codec, the DEBUG degree checks and the "
@@ -2952,6 +3100,10 @@ def main():
     assert {"hashing", "vm", "quotients_host", "fri_host"} <= set(
         host_libs), host_libs
 
+    if opts.turns:
+        turns(opts.turns)
+        print(smi, flush=True)
+        return
     full_src = counter_program(1 << LOG2_CYCLES)
     if opts.field_kernels or opts.fri_fold:
         if opts.field_kernels:
@@ -3085,6 +3237,7 @@ def main():
     ]
     # F1-F3 stand for XLA's fusion of the JAX package's field arithmetic,
     # no Pallas kernel; "replaces" names the function each one computes
+    # (F3 at its largest group of the main path, the 16 base columns)
     field_src = "stark_brainfuck_tpu_torch/csrc/field.cu"
     full = launches["full_prove"][0]
     for key, name, replaces, what, main, at in (
@@ -3098,7 +3251,7 @@ def main():
             ("f3", "acc_group", "stark_brainfuck_tpu/protocol/stark.py:765",
              "BrainfuckStark._acc_group:765",
              next(i for i, r in enumerate(f_rows["f3"])
-                  if r.get("baseline_shape") == "quotients"),
+                  if r.get("baseline_shape") == "base"),
              ("group", "terms", "n", "form"))):
         kernels.append(kernel_entry(
             name, field_src, replaces, full[key], streamed[key],
@@ -3107,21 +3260,25 @@ def main():
             replaces_note=f"no pl.pallas_call: the XLA-fused form of {what}",
             extra={"launches_power_tables": full["f3_powers"]}
             if key == "f3" else None))
-    # F4 stands for XLA's fusion of each table's quotient stack, staged by
-    # the JAX package as comb_quot{ti}: ms and bound of one evaluation (all
-    # five tables) resident at N = 2^21
+    # F4 stands for XLA's fusion of each table's quotient stack and of its
+    # weighing into the combination, staged by the JAX package as
+    # comb_quot{ti} + comb_acc_q{T} and comb_pa + comb_acc_q2: ms and bound
+    # of one launch resident at N = 2^21
+    f4_rows = [r for r in f_rows["f4"] if r["kernel"] == "f4"]
     kernels.append(kernel_entry(
         "quotients", "stark_brainfuck_tpu_torch/csrc/quotients.cu",
         "stark_brainfuck_tpu/protocol/stark.py:797", full["f4"],
-        streamed["f4"], mesh_counts["f4"], ref_counts["f4"], f_rows["f4"],
-        next(i for i, r in enumerate(f_rows["f4"])
-             if (r["form"], r["table"]) == ("resident", "all five")),
-        ("form", "table", "n"),
+        streamed["f4"], mesh_counts["f4"], ref_counts["f4"], f4_rows,
+        next(i for i, r in enumerate(f4_rows) if r["form"] == "resident"),
+        ("form", "n", "terms", "shifts", "plan"),
         "no PyTorch call evaluates AIR constraints",
         replaces_note="no pl.pallas_call: the XLA-fused form of "
-                      "BrainfuckStark._table_quotient_stack:797, staged as "
-                      "comb_quot{ti} (stark.py:1391)",
-        extra={"launches_mxu": counts["f4"]}))
+                      "BrainfuckStark._table_quotient_stack:797 and "
+                      "_acc_group:765, staged as comb_quot{ti} + "
+                      "comb_acc_q{T} and comb_pa + comb_acc_q2 "
+                      "(stark.py:1386-1428)",
+        extra={"launches_mxu": counts["f4"],
+               "launches_prologue": full["f4_prologue"]}))
     # F5 stands for XLA's compiled fold round, fri.fold.n{N}.tree{t}: ms
     # and bound at the top device round of the resident prove, N = 2^21
     kernels.append(kernel_entry(

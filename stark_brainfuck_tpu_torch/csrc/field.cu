@@ -77,12 +77,15 @@
 //     fill the card, a streamed class of 2^17 included; 8 at a domain of
 //     2^14). A thread keeps at most 64 registers, so that an SM holds 4
 //     blocks (32 warps).
-// Field sums are exact, so neither the term split nor the lazy sums change
-// a bit of the result.
+// The power tables, a term's weighting and the lazy sums are
+// accumulate.cuh's, which kernel F4 (quotients.cu) shares. Field sums are
+// exact, so neither the term split nor the lazy sums change a bit of the
+// result.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "accumulate.cuh"
 #include "goldilocks.cuh"
 
 namespace {
@@ -91,18 +94,13 @@ constexpr int kMaxDims = 6;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;
 // F3: threads a block, the most term groups a block and terms a launch,
-// the power tables' split of a position i = (kAccMid h + m) kAccTile + j,
 // the gain a larger term split must bring (acc_group_plan), and the blocks
-// an SM must hold (the register cap of acc_group_kernel)
+// an SM must hold (the register cap of acc_group_kernel); the power
+// tables' split of a position is accumulate.cuh's
 constexpr int kAccLogThreads = 8;
 constexpr int kAccThreads = 1 << kAccLogThreads;
 constexpr int kAccLogMaxGroups = 3;
 constexpr int kAccMaxTerms = 64;
-constexpr int kAccLogTile = 8;
-constexpr int kAccTile = 1 << kAccLogTile;
-constexpr int kAccLogMid = 6;
-constexpr int kAccMid = 1 << kAccLogMid;
-constexpr int kAccLogTop = kAccLogTile + kAccLogMid;
 constexpr double kAccSplitGain = 1.05;
 constexpr int kAccBlocksPerSm = 4;
 
@@ -207,70 +205,6 @@ struct AccArgs {
   AccTerm term[kAccMaxTerms];
 };
 
-// an unreduced sum of 128-bit products a b (a = a0 + a1 2^32, b likewise),
-// kept by the weight of their 32 x 32 partial products so that every
-// multiply-add lands on a 64-bit register pair: the even sum e0 + e1 2^64
-// + e2 2^128 of a0 b0 + a1 b1 2^64, the odd sum o + o2 2^64 of a0 b1 +
-// a1 b0; the sum is even + odd 2^32
-struct Sum160 {
-  uint64_t e0, e1, o;
-  uint32_t e2, o2;
-};
-
-// s += a * b: four multiply-adds of 32 x 32 words into 64-bit pairs, each
-// with its carry out (the compiler makes each low and high pair one wide
-// multiply-add), and three carry adds
-__device__ __forceinline__ void mac(Sum160& s, uint64_t a, uint64_t b) {
-  asm("{\n\t"
-      ".reg .u32 a0, a1, b0, b1, x0, x1, x2, x3, y0, y1;\n\t"
-      "mov.b64 {a0, a1}, %5;\n\t"
-      "mov.b64 {b0, b1}, %6;\n\t"
-      "mov.b64 {x0, x1}, %0;\n\t"
-      "mov.b64 {x2, x3}, %1;\n\t"
-      "mov.b64 {y0, y1}, %3;\n\t"
-      "mad.lo.cc.u32 x0, a0, b0, x0;\n\t"
-      "madc.hi.cc.u32 x1, a0, b0, x1;\n\t"
-      "madc.lo.cc.u32 x2, a1, b1, x2;\n\t"
-      "madc.hi.cc.u32 x3, a1, b1, x3;\n\t"
-      "addc.u32 %2, %2, 0;\n\t"
-      "mad.lo.cc.u32 y0, a0, b1, y0;\n\t"
-      "madc.hi.cc.u32 y1, a0, b1, y1;\n\t"
-      "addc.u32 %4, %4, 0;\n\t"
-      "mad.lo.cc.u32 y0, a1, b0, y0;\n\t"
-      "madc.hi.cc.u32 y1, a1, b0, y1;\n\t"
-      "addc.u32 %4, %4, 0;\n\t"
-      "mov.b64 %0, {x0, x1};\n\t"
-      "mov.b64 %1, {x2, x3};\n\t"
-      "mov.b64 %3, {y0, y1};\n\t"
-      "}"
-      : "+l"(s.e0), "+l"(s.e1), "+r"(s.e2), "+l"(s.o), "+r"(s.o2)
-      : "l"(a), "l"(b));
-}
-
-// s (mod p), canonical: the even sum with 2^128 == -2^32 (e2 2^32 < p
-// while e2 < 2^32 - 1), the odd one times 2^32 as o 2^32 + o2 2^96 with
-// 2^96 == -1 (o2 < p); a launch sums at most 3 kAccMaxTerms products a
-// sum, so e2 and o2 stay below 2^9
-__device__ __forceinline__ uint64_t reduce160(const Sum160& s) {
-  const uint64_t even =
-      gl_sub(reduce128(s.e0, s.e1), (uint64_t)s.e2 << 32);
-  const uint64_t odd = gl_sub(reduce128(s.o << 32, s.o >> 32), s.o2);
-  return gl_add(even, odd);
-}
-
-// a[k] = a[0] * q^k for k < len, a[0] set: rounds of a[s + j] = a[j] *
-// q^s for j < s, s = 1, 2, 4, ...; q becomes q^(2^ceil(log2 len)). Every
-// thread of the block calls it.
-__device__ void fill_powers(uint64_t* a, long long len, uint64_t& q) {
-  for (long long s = 1; s < len; s <<= 1) {
-    __syncthreads();
-    const long long m = len - s < s ? len - s : s;
-    for (long long j = threadIdx.x; j < m; j += blockDim.x)
-      a[s + j] = gl_mul(a[j], q);
-    q = gl_mul(q, q);
-  }
-}
-
 // F3's tables, block t for term t: row t holds r^j (j < kAccTile), then
 // r^(kAccTile m) (m < kAccMid), then start * r^(2^kAccLogTop h) (h < top)
 __global__ void __launch_bounds__(kAccThreads)
@@ -278,18 +212,8 @@ acc_powers_kernel(const uint64_t* __restrict__ ratios,
                   const uint64_t* __restrict__ starts,
                   uint64_t* __restrict__ tables, long long row,
                   long long top) {
-  uint64_t* pw = tables + blockIdx.x * row;
-  uint64_t* mid = pw + kAccTile;
-  uint64_t* hi = mid + kAccMid;
-  if (threadIdx.x == 0) {
-    pw[0] = 1;
-    mid[0] = 1;
-    hi[0] = starts[blockIdx.x];
-  }
-  uint64_t q = ratios[blockIdx.x];
-  fill_powers(pw, kAccTile, q);  // q = r^kAccTile after
-  fill_powers(mid, kAccMid, q);  // q = r^(2^kAccLogTop) after
-  fill_powers(hi, top, q);
+  power_row(ratios[blockIdx.x], starts[blockIdx.x],
+            tables + blockIdx.x * row, top);
 }
 
 // term c's words at position p: y0, or the three coefficients
@@ -320,19 +244,10 @@ acc_group_kernel(const __grid_constant__ AccArgs A) {
   const long long tile0 = (long long)blockIdx.x * per;
   const long long p = tile0 + j;
   {
-    const long long h = tile0 >> kAccLogTop;
-    const int m = (int)(tile0 >> kAccLogTile) & (kAccMid - 1);
     const int off = (int)(tile0 & (kAccTile - 1));
     for (int t = threadIdx.x; t < A.terms; t += kAccThreads) {
       const uint64_t* row = A.tables + t * A.row;
-      const uint64_t x0 =
-          gl_mul(row[kAccTile + kAccMid + h], row[kAccTile + m]);
-      const uint64_t* w = A.w + 6 * t;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        s_w[t][k] = gl_mul(w[3 + k], x0);
-        s_w[t][3 + k] = w[k];
-      }
+      term_start(row, tile0, A.w + 6 * t, s_w[t]);
       s_pw[t] = row + off;
     }
   }
@@ -348,36 +263,10 @@ acc_group_kernel(const __grid_constant__ AccArgs A) {
       // the next term's words in flight while this one multiplies
       if (t + G < A.terms) load_term<Ext>(A.term[t + G], p, v0, v1, v2);
       const uint64_t x = __ldg(s_pw[t] + j);
-      if constexpr (Ext) {
-        const uint64_t c0 = gl_add(gl_mul(s_w[t][0], x), s_w[t][3]);
-        const uint64_t c1 = gl_add(gl_mul(s_w[t][1], x), s_w[t][4]);
-        const uint64_t c2 = gl_add(gl_mul(s_w[t][2], x), s_w[t][5]);
-        // c * y with X^3 = X - 1 as y's multiplication matrix times c:
-        // r0 = c0 y0 - c1 y2 - c2 y1, r1 = c0 y1 + c1 (y0 + y2) + c2 (y1 -
-        // y2), r2 = c0 y2 + c1 y1 + c2 (y0 + y2); p - y is p for y = 0,
-        // whose products are 0 (mod p) all the same
-        const uint64_t u = gl_add(y0, y2);
-        mac(s[0], c0, y0);
-        mac(s[0], c1, kP - y2);
-        mac(s[0], c2, kP - y1);
-        mac(s[1], c0, y1);
-        mac(s[1], c1, u);
-        mac(s[1], c2, gl_sub(y1, y2));
-        mac(s[2], c0, y2);
-        mac(s[2], c1, y1);
-        mac(s[2], c2, u);
-      } else {
-        // (w_shift start r^tile0 x + w_plain) y as (w_shift start r^tile0)
-        // (x y) + w_plain y: one reduced multiply and six products, where
-        // the coefficient would take three multiplies and three adds
-        const uint64_t z = gl_mul(x, y0);
-        mac(s[0], s_w[t][0], z);
-        mac(s[0], s_w[t][3], y0);
-        mac(s[1], s_w[t][1], z);
-        mac(s[1], s_w[t][4], y0);
-        mac(s[2], s_w[t][2], z);
-        mac(s[2], s_w[t][5], y0);
-      }
+      if constexpr (Ext)
+        acc_ext_term(s, s_w[t], x, y0, y1, y2);
+      else
+        acc_base_term(s, s_w[t], x, y0);
     }
   }
   uint64_t r0 = reduce160(s[0]), r1 = reduce160(s[1]), r2 = reduce160(s[2]);

@@ -14,10 +14,13 @@
 namespace {
 
 // processor: 421 recorded operations, 188 after lowering; 21 quotients;
-// a position: 195 multiplies, 61 adds, 88 subs, 22 words read, 63 written
+// a position: 195 multiplies, 61 adds, 88 subs, 22 words read;
+// 10 extension and 11 base quotients
 struct QuotientsProcessor {
   static constexpr uint64_t kKey = 0x3005E70672699953ULL;
   static constexpr int kBase = 7, kExt = 4, kOutputs = 21, kUniform = 14, kParams = 0;
+  // bit t: quotient t is an extension element
+  static constexpr uint64_t kExtMask = 0x1FE060ULL;
 
   GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,
                             const long long* params, Xf* u) {
@@ -154,22 +157,22 @@ struct QuotientsProcessor {
     const uint64_t v118 = gl_mul(v44, v47);
     const uint64_t v119 = gl_mul(v118, v82);
     const uint64_t v120 = gl_add(v115, v119);
-    r.store(7, Xf{gl_mul(v120, r.zinv(1)), 0, 0});
+    r.store(7, gl_mul(v120, r.zinv(1)));
     const uint64_t v121 = gl_mul(v118, v64);
     const uint64_t v122 = gl_add(v117, v121);
-    r.store(8, Xf{gl_mul(v122, r.zinv(1)), 0, 0});
+    r.store(8, gl_mul(v122, r.zinv(1)));
     const uint64_t v123 = gl_mul(v118, v65);
     const uint64_t v124 = gl_add(v112, v123);
-    r.store(9, Xf{gl_mul(v124, r.zinv(1)), 0, 0});
+    r.store(9, gl_mul(v124, r.zinv(1)));
     const uint64_t v11 = r.base(0, 1);
     const uint64_t v0 = r.base(0, 0);
     const uint64_t v125 = gl_sub(v11, v0);
     const uint64_t v126 = gl_sub(v125, 0x1ULL);
-    r.store(10, Xf{gl_mul(v126, r.zinv(1)), 0, 0});
+    r.store(10, gl_mul(v126, r.zinv(1)));
     const uint64_t v127 = gl_mul(v5, v54);
-    r.store(11, Xf{gl_mul(v127, r.zinv(1)), 0, 0});
+    r.store(11, gl_mul(v127, r.zinv(1)));
     const uint64_t v128 = gl_mul(v6, v54);
-    r.store(12, Xf{gl_mul(v128, r.zinv(1)), 0, 0});
+    r.store(12, gl_mul(v128, r.zinv(1)));
     const Xf v129 = xf_mul_base(u[0], v1);
     const Xf v130 = xf_sub(u[1], v129);
     const Xf v131 = xf_mul_base(u[2], v2);
@@ -245,21 +248,24 @@ struct QuotientsProcessor {
     r.store(19, xf_mul_base(v186, r.zinv(2)));
     const Xf v187 = xf_sub(u[13], v10);
     r.store(20, xf_mul_base(v187, r.zinv(2)));
-    r.store(0, Xf{gl_mul(v0, r.zinv(0)), 0, 0});
-    r.store(1, Xf{gl_mul(v1, r.zinv(0)), 0, 0});
-    r.store(2, Xf{gl_mul(v4, r.zinv(0)), 0, 0});
-    r.store(3, Xf{gl_mul(v5, r.zinv(0)), 0, 0});
-    r.store(4, Xf{gl_mul(v6, r.zinv(0)), 0, 0});
+    r.store(0, gl_mul(v0, r.zinv(0)));
+    r.store(1, gl_mul(v1, r.zinv(0)));
+    r.store(2, gl_mul(v4, r.zinv(0)));
+    r.store(3, gl_mul(v5, r.zinv(0)));
+    r.store(4, gl_mul(v6, r.zinv(0)));
     r.store(5, xf_mul_base(v9, r.zinv(0)));
     r.store(6, xf_mul_base(v10, r.zinv(0)));
   }
 };
 
 // instruction: 110 recorded operations, 76 after lowering; 10 quotients;
-// a position: 85 multiplies, 31 adds, 55 subs, 12 words read, 30 written
+// a position: 85 multiplies, 31 adds, 55 subs, 12 words read;
+// 5 extension and 5 base quotients
 struct QuotientsInstruction {
   static constexpr uint64_t kKey = 0x48435CD51B2B1287ULL;
   static constexpr int kBase = 3, kExt = 2, kOutputs = 10, kUniform = 7, kParams = 0;
+  // bit t: quotient t is an extension element
+  static constexpr uint64_t kExtMask = 0x3C2ULL;
 
   GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,
                             const long long* params, Xf* u) {
@@ -300,18 +306,18 @@ struct QuotientsInstruction {
     const uint64_t v23 = gl_sub(v5, v0);
     const uint64_t v24 = gl_sub(v23, 0x1ULL);
     const uint64_t v25 = gl_mul(v23, v24);
-    r.store(2, Xf{gl_mul(v25, r.zinv(1)), 0, 0});
+    r.store(2, gl_mul(v25, r.zinv(1)));
     const uint64_t v6 = r.base(1, 1);
     const uint64_t v26 = gl_sub(v2, v6);
     const uint64_t v27 = gl_mul(v23, v26);
-    r.store(3, Xf{gl_mul(v27, r.zinv(1)), 0, 0});
+    r.store(3, gl_mul(v27, r.zinv(1)));
     const uint64_t v28 = gl_sub(v6, v1);
     const uint64_t v29 = gl_mul(v24, v28);
-    r.store(4, Xf{gl_mul(v29, r.zinv(1)), 0, 0});
+    r.store(4, gl_mul(v29, r.zinv(1)));
     const uint64_t v7 = r.base(2, 1);
     const uint64_t v30 = gl_sub(v7, v2);
     const uint64_t v31 = gl_mul(v24, v30);
-    r.store(5, Xf{gl_mul(v31, r.zinv(1)), 0, 0});
+    r.store(5, gl_mul(v31, r.zinv(1)));
     const Xf v32 = xf_mul_base(u[0], v5);
     const Xf v33 = xf_sub(u[3], v32);
     const Xf v34 = xf_mul_base(u[1], v6);
@@ -363,15 +369,18 @@ struct QuotientsInstruction {
     r.store(8, xf_mul_base(v74, r.zinv(2)));
     const Xf v75 = xf_sub(v4, u[6]);
     r.store(9, xf_mul_base(v75, r.zinv(2)));
-    r.store(0, Xf{gl_mul(v0, r.zinv(0)), 0, 0});
+    r.store(0, gl_mul(v0, r.zinv(0)));
   }
 };
 
 // memory: 72 recorded operations, 47 after lowering; 11 quotients;
-// a position: 51 multiplies, 12 adds, 32 subs, 10 words read, 33 written
+// a position: 51 multiplies, 12 adds, 32 subs, 10 words read;
+// 2 extension and 9 base quotients
 struct QuotientsMemory {
   static constexpr uint64_t kKey = 0x99E49D1581A4C357ULL;
   static constexpr int kBase = 4, kExt = 1, kOutputs = 11, kUniform = 5, kParams = 0;
+  // bit t: quotient t is an extension element
+  static constexpr uint64_t kExtMask = 0x600ULL;
 
   GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,
                             const long long* params, Xf* u) {
@@ -398,21 +407,21 @@ struct QuotientsMemory {
     const uint64_t v15 = gl_sub(v6, v1);
     const uint64_t v16 = gl_sub(v15, 0x1ULL);
     const uint64_t v17 = gl_mul(v15, v16);
-    r.store(3, Xf{gl_mul(v17, r.zinv(1)), 0, 0});
+    r.store(3, gl_mul(v17, r.zinv(1)));
     const uint64_t v7 = r.base(2, 1);
     const uint64_t v18 = gl_mul(v15, v7);
-    r.store(4, Xf{gl_mul(v18, r.zinv(1)), 0, 0});
+    r.store(4, gl_mul(v18, r.zinv(1)));
     const uint64_t v8 = r.base(3, 1);
     const uint64_t v19 = gl_sub(v8, 0x1ULL);
     const uint64_t v20 = gl_mul(v19, v8);
-    r.store(5, Xf{gl_mul(v20, r.zinv(1)), 0, 0});
+    r.store(5, gl_mul(v20, r.zinv(1)));
     const uint64_t v3 = r.base(3, 0);
     const uint64_t v21 = gl_mul(v15, v3);
-    r.store(6, Xf{gl_mul(v21, r.zinv(1)), 0, 0});
+    r.store(6, gl_mul(v21, r.zinv(1)));
     const uint64_t v2 = r.base(2, 0);
     const uint64_t v22 = gl_sub(v7, v2);
     const uint64_t v23 = gl_mul(v3, v22);
-    r.store(7, Xf{gl_mul(v23, r.zinv(1)), 0, 0});
+    r.store(7, gl_mul(v23, r.zinv(1)));
     const uint64_t v24 = gl_sub(v6, 0x1ULL);
     const uint64_t v25 = gl_sub(v24, v1);
     const uint64_t v5 = r.base(0, 1);
@@ -420,7 +429,7 @@ struct QuotientsMemory {
     const uint64_t v0 = r.base(0, 0);
     const uint64_t v27 = gl_sub(v26, v0);
     const uint64_t v28 = gl_mul(v25, v27);
-    r.store(8, Xf{gl_mul(v28, r.zinv(1)), 0, 0});
+    r.store(8, gl_mul(v28, r.zinv(1)));
     const Xf v29 = xf_mul_base(u[0], v0);
     const Xf v30 = xf_sub(u[1], v29);
     const Xf v31 = xf_mul_base(u[2], v1);
@@ -443,17 +452,20 @@ struct QuotientsMemory {
     const Xf v45 = xf_mul_base(v44, v3);
     const Xf v46 = xf_add(v43, v45);
     r.store(10, xf_mul_base(v46, r.zinv(2)));
-    r.store(0, Xf{gl_mul(v0, r.zinv(0)), 0, 0});
-    r.store(1, Xf{gl_mul(v1, r.zinv(0)), 0, 0});
-    r.store(2, Xf{gl_mul(v2, r.zinv(0)), 0, 0});
+    r.store(0, gl_mul(v0, r.zinv(0)));
+    r.store(1, gl_mul(v1, r.zinv(0)));
+    r.store(2, gl_mul(v2, r.zinv(0)));
   }
 };
 
 // input: 27 recorded operations, 13 after lowering; 3 quotients;
-// a position: 18 multiplies, 7 adds, 9 subs, 7 words read, 9 written
+// a position: 18 multiplies, 7 adds, 9 subs, 7 words read;
+// 3 extension and 0 base quotients
 struct QuotientsInput {
   static constexpr uint64_t kKey = 0xFF248CAAE3E2BC79ULL;
   static constexpr int kBase = 1, kExt = 1, kOutputs = 3, kUniform = 2, kParams = 1;
+  // bit t: quotient t is an extension element
+  static constexpr uint64_t kExtMask = 0x7ULL;
 
   GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,
                             const long long* params, Xf* u) {
@@ -487,10 +499,13 @@ struct QuotientsInput {
 };
 
 // output: 27 recorded operations, 13 after lowering; 3 quotients;
-// a position: 18 multiplies, 7 adds, 9 subs, 7 words read, 9 written
+// a position: 18 multiplies, 7 adds, 9 subs, 7 words read;
+// 3 extension and 0 base quotients
 struct QuotientsOutput {
   static constexpr uint64_t kKey = 0xF0D9E97F43AA94D2ULL;
   static constexpr int kBase = 1, kExt = 1, kOutputs = 3, kUniform = 2, kParams = 1;
+  // bit t: quotient t is an extension element
+  static constexpr uint64_t kExtMask = 0x7ULL;
 
   GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,
                             const long long* params, Xf* u) {

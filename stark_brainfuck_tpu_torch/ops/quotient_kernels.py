@@ -1,8 +1,12 @@
-"""Kernel F4 (`csrc/quotients.cu`): each table's AIR quotients in one launch.
+"""Kernel F4 (`csrc/quotients.cu`): every table's AIR quotients and the two
+permutation quotients, weighed into the combination in one launch.
 
 The JAX package stages each table's `_table_quotient_stack` as one jitted
-executable (`comb_quot{ti}`), whose constraint expression XLA fuses. The
-port's counterpart is F4, whose body is generated here from the models:
+executable (`comb_quot{ti}`), whose constraint expression XLA fuses, and
+weighs each (T, N, 3) stack into the combination in another
+(`comb_acc_q{T}`, and `comb_pa` + `comb_acc_q2` for the permutation
+arguments). The port's counterpart of all of them is F4, whose bodies are
+generated here from the models:
 
   - `program(table)` records `Table.quotients` with `ProgramAlgebra`
     (`models/interp.py`) as a straight-line program over the row's and the
@@ -10,18 +14,20 @@ port's counterpart is F4, whose body is generated here from the models:
   - `lower` folds its constants (x + 0, x·1, x·0 and constant operands:
     field arithmetic is exact, so no bit changes), merges common
     subexpressions, drops dead nodes, and splits off the values that depend
-    on no column (`uniform`: computed once a block);
+    on no column (`uniform`: computed once a launch);
   - `emit` writes the five tables' lowered programs as straight-line C++
     into `csrc/quotients_gen.cuh`, which is committed:
 
         python -m stark_brainfuck_tpu_torch.ops.quotient_kernels --emit
 
     (a tier-1 test holds the committed file to a fresh emit);
-  - `quotient_stack` launches F4 on CUDA operands and returns the (T, n, 3)
-    stack that F3 consumes; `host_stack` runs the same generated body
-    compiled with g++ (`native/quotients_host.cpp`), for the tests.
+  - `quotient_combination` launches F4 on CUDA operands: acc += every
+    quotient term of the combination, weighed as it is computed, in place;
+    `host_combination` runs the same bodies and weighing compiled with g++
+    (`native/quotients_host.cpp`), and `host_stack` one table's bodies
+    with a sink that writes its (T, n, 3) stack, for the tests.
 
-Each launch carries its program's key (`Program.key`); the library refuses
+Each launch carries its programs' keys (`Program.key`); the library refuses
 a key it was not generated from, so a stale emit raises instead of
 computing other constraints. Nothing here builds or launches at import.
 """
@@ -38,17 +44,22 @@ import torch
 from ..models.interp import ZEROFIERS, Program, ProgramAlgebra
 from . import cuda_build
 from . import field as f
+from . import field_kernels as fk
 from . import xfield as xf
 from .field_kernels import _on, _stream, card_device
 
-# launches of F4 since import (or since a caller reset it)
+# launches of F4 since import (or since a caller reset them), each after a
+# launch of its prologue (power tables and uniform values), counted beside it
 LAUNCHES_QUOTIENT = 0
+LAUNCHES_QUOTIENT_PROLOGUE = 0
 
-# the prover's tables, in the order of `BrainfuckStark.tables`: the index is
-# csrc/quotients.cu's `table` argument
+# the prover's tables, in the order of `BrainfuckStark.tables`: the order
+# of F4's operands and of csrc/quotients_gen.cuh's tables
 TABLES = ("processor", "instruction", "memory", "input", "output")
-# csrc/quotients.cuh's codes for arguments the compiled program does not take
+# csrc/quotients.cuh's codes for arguments the compiled programs do not
+# take, and its most exponents a table
 BAD_TABLE, BAD_KEY, BAD_SHAPE = -1, -2, -3
+MAX_PARAMS = 4
 
 GEN_PATH = os.path.join(cuda_build.CSRC_DIR, "quotients_gen.cuh")
 EMIT_COMMAND = "python -m stark_brainfuck_tpu_torch.ops.quotient_kernels --emit"
@@ -220,14 +231,15 @@ def lower(prog: Program) -> Lowered:
 
 def row_counts(low: Lowered) -> Dict[str, int]:
     """Goldilocks operations and words of one position of the lowered
-    program, the uniform part left out (it runs once a block): "mul",
+    program, the uniform part left out (it runs once a launch): "mul",
     "add", "sub" (a negation is a sub), as `goldilocks.cuh` spends them
     (an F_p^3 multiply 9 multiplies, 6 adds, 2 subs; a mixed multiply 3
     multiplies; a mixed add or sub touches the base coefficient only, and
     base - extension negates the other two); "read": distinct column and
     zerofier words loaded (a column at the row and at the next row is one
-    column of the codeword, read once from memory), "written": output
-    words."""
+    column of the codeword, read once from memory); "ext_outputs",
+    "base_outputs": the quotients of each kind (the multiplies by their
+    zerofier inverses are counted in "mul")."""
     out = dict.fromkeys(("mul", "add", "sub"), 0)
 
     def ext_of(v):
@@ -263,10 +275,20 @@ def row_counts(low: Lowered) -> Dict[str, int]:
     for v, kind in low.outputs:
         out["mul"] += 3 if ext_of(v) else 1
         kinds.add(kind)
+    out["ext_outputs"] = bin(ext_mask(low)).count("1")
+    out["base_outputs"] = len(low.outputs) - out["ext_outputs"]
     out["read"] = sum(3 if kind == "ext" else 1 for kind, _ in columns)
     out["read"] += len(kinds)
-    out["written"] = 3 * len(low.outputs)
     return out
+
+
+def ext_mask(low: Lowered) -> int:
+    """The lowered program's extension outputs as bits: bit t for output t."""
+    mask = 0
+    for t, (v, _) in enumerate(low.outputs):
+        if (v[2] if v[0] == "c" else low.nodes[v[1]][1]):
+            mask |= 1 << t
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +367,7 @@ class _Emitter:
         x = self.ref(v, True)
         if self.ext(v):
             return f"    r.store({t}, xf_mul_base({x}, {z}));"
-        return f"    r.store({t}, Xf{{gl_mul({x}, {z}), 0, 0}});"
+        return f"    r.store({t}, gl_mul({x}, {z}));"
 
     def row(self) -> List[str]:
         """The row body: each non-uniform node, a load at its first use,
@@ -418,13 +440,16 @@ def emit_table(name: str, prog: Program) -> str:
         f"// {name}: {len(prog.ops)} recorded operations, {len(low.nodes)} "
         f"after lowering; {len(prog.outputs)} quotients;",
         f"// a position: {counts['mul']} multiplies, {counts['add']} adds, "
-        f"{counts['sub']} subs, {counts['read']} words read, "
-        f"{counts['written']} written",
+        f"{counts['sub']} subs, {counts['read']} words read;",
+        f"// {counts['ext_outputs']} extension and {counts['base_outputs']} "
+        "base quotients",
         f"struct {_struct_name(name)} {{",
         f"  static constexpr uint64_t kKey = 0x{prog.key:016X}ULL;",
         f"  static constexpr int kBase = {prog.base_width}, "
         f"kExt = {prog.ext_width}, kOutputs = {len(prog.outputs)}, "
         f"kUniform = {len(em.slots)}, kParams = {len(prog.params)};",
+        "  // bit t: quotient t is an extension element",
+        f"  static constexpr uint64_t kExtMask = 0x{ext_mask(low):X}ULL;",
         "",
         "  GL_FN static void uniform(const uint64_t* ch, const uint64_t* tm,",
         "                            const long long* params, Xf* u) {",
@@ -483,23 +508,25 @@ def emit(tables=None) -> str:
 # launching
 # ---------------------------------------------------------------------------
 
-
-def _signature(fn, stream: bool):
-    fn.argtypes = (
-        [ctypes.c_int, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_longlong),
-         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_void_p] * 2
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        + ([ctypes.c_void_p] if stream else []))
-    fn.restype = ctypes.c_int
+_PTR = ctypes.c_void_p
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_INT = ctypes.POINTER(ctypes.c_int)
+# quotients_launch's and quotients_acc_host's arguments, up to the scratch
+_ACC_ARGS = [ctypes.POINTER(ctypes.c_ulonglong), _LL, _INT, _LL, _LL, _INT,
+             _LL, ctypes.c_longlong, _PTR, _PTR, _PTR, _PTR, _PTR,
+             ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int, ctypes.c_int]
 
 
 def _kernel_lib():
     global _LIB
     if _LIB is None:
         lib = cuda_build.load("quotients")
-        _signature(lib.quotients_launch, True)
+        lib.quotients_launch.argtypes = _ACC_ARGS + [_PTR] * 4
+        lib.quotients_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, _LL]
+        lib.quotients_uniform_words.argtypes = []
+        for fn in (lib.quotients_launch, lib.quotients_plan,
+                   lib.quotients_uniform_words):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -508,7 +535,13 @@ def _host_lib():
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = cuda_build.load_host("quotients_host")
-        _signature(lib.quotients_host, False)
+        lib.quotients_host.argtypes = (
+            [ctypes.c_int, ctypes.c_ulonglong, _LL, ctypes.c_int, _LL, _PTR,
+             _PTR, _LL, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+             _PTR])
+        lib.quotients_acc_host.argtypes = _ACC_ARGS + [_PTR]
+        for fn in (lib.quotients_host, lib.quotients_acc_host):
+            fn.restype = ctypes.c_int
         _HOST_LIB = lib
     return _HOST_LIB
 
@@ -540,13 +573,11 @@ def _columns(base_cw, ext_cw, base_next, ext_next) -> List[int]:
     return out
 
 
-def _arguments(table: int, prog: Program, base_cw, ext_cw, challenges,
-               terminals, zinv, rot, base_next, ext_next):
-    """(the launcher's arguments after `table` and before the stream, the
-    output) for operands on one device, checked against the program."""
-    if not 0 <= table < len(TABLES):
-        raise ValueError(f"no table {table}")
-    n = int(base_cw.shape[1])
+def _table_arguments(prog: Program, n: int, base_cw, ext_cw,
+                     zinv: Dict[str, torch.Tensor], rot: int, base_next=None,
+                     ext_next=None) -> Tuple[List[int], List[int]]:
+    """(flat columns, zerofier (address, stride) pairs) of one table's
+    operands at n positions, checked against its program."""
     shapes = [tuple(base_cw.shape), tuple(ext_cw.shape)]
     want = [(prog.base_width, n), (prog.ext_width, n, 3)]
     if base_next is None:
@@ -559,9 +590,6 @@ def _arguments(table: int, prog: Program, base_cw, ext_cw, challenges,
         raise ValueError(f"quotient columns {shapes}, want {want}")
     if not 0 <= rot < max(n, 1):
         raise ValueError(f"rot {rot} for n = {n}")
-    if tuple(challenges.shape) != (11, 3) or tuple(terminals.shape) != (5, 3):
-        raise ValueError(f"challenges {tuple(challenges.shape)}, terminals "
-                         f"{tuple(terminals.shape)}")
     zs = []
     for kind in ZEROFIERS:
         z = zinv[kind]
@@ -572,65 +600,189 @@ def _arguments(table: int, prog: Program, base_cw, ext_cw, challenges,
         else:
             raise ValueError(f"{kind} zerofier inverse {tuple(z.shape)} "
                              f"for n = {n}")
-    cols = _columns(base_cw, ext_cw, base_next, ext_next)
-    out = base_cw.new_empty((len(prog.outputs), n, 3))
-    ncols = prog.base_width + prog.ext_width
-    args = (prog.key, (ctypes.c_longlong * len(cols))(*cols), ncols,
-            (ctypes.c_longlong * 6)(*zs), ctypes.c_void_p(challenges.data_ptr()),
-            ctypes.c_void_p(terminals.data_ptr()),
-            (ctypes.c_longlong * max(len(prog.params), 1))(*prog.params),
-            len(prog.params), n, rot, ctypes.c_void_p(out.data_ptr()))
-    return args, out
+    return _columns(base_cw, ext_cw, base_next, ext_next), zs
 
 
-def quotient_stack(table: int, prog: Program, base_cw, ext_cw, challenges,
-                   terminals, zinv: Dict[str, torch.Tensor], rot: int,
-                   base_next=None, ext_next=None):
-    """F4: `Table.quotients` of table `table` (its index in TABLES) as the
-    (T, n, 3) int64 stack, one launch. base_cw (width, n), ext_cw (n_ext,
-    n, 3): the columns at any strides (0 included), read where they lie;
-    the next row is column position (i + rot) mod n, or, where base_next
-    and ext_next are given (rot 0), those columns at i. challenges (11,
-    3), terminals (5, 3); zinv {kind: (n,) or 0-dim}. `prog` is the
-    table's recorded program (`program(table)`), whose key the library
-    must hold and whose exponents it takes. All on one CUDA device (a 0-dim
-    CPU constant is moved); a failed launch raises."""
-    global LAUNCHES_QUOTIENT
-    operands = [base_cw, ext_cw, challenges, terminals,
-                *(zinv[k] for k in ZEROFIERS)]
-    if base_next is not None:
-        operands += [base_next, ext_next]
-    device = card_device(*operands)
+def _words(challenges, terminals):
+    if tuple(challenges.shape) != (11, 3) or tuple(terminals.shape) != (5, 3):
+        raise ValueError(f"challenges {tuple(challenges.shape)}, terminals "
+                         f"{tuple(terminals.shape)}")
+    return challenges.contiguous(), terminals.contiguous()
+
+
+def _array(ctype, values):
+    return (ctype * max(len(values), 1))(*values)
+
+
+def terms(progs: Sequence[Program]) -> int:
+    """The combination's quotient terms: every table's quotients, then the
+    two permutation arguments' difference quotients."""
+    return sum(len(p.outputs) for p in progs) + 2
+
+
+def distinct_shifts(shifts: Sequence[int]) -> Tuple[List[int], List[int]]:
+    """(slots, distinct): the distinct values of `shifts` in order of first
+    appearance, and each shift's index among them."""
+    distinct: List[int] = []
+    index: Dict[int, int] = {}
+    slots = []
+    for s in shifts:
+        if s not in index:
+            index[s] = len(distinct)
+            distinct.append(s)
+        slots.append(index[s])
+    return slots, distinct
+
+
+def _combination_arguments(progs, tables, challenges, terminals, w_pairs,
+                           ratios, starts, slots, acc) -> list:
+    """quotients_launch's arguments up to its scratch, for operands on one
+    device, checked against the programs: `tables` holds each table's
+    (base_cw, ext_cw, zinv, rot[, base_next, ext_next]) in TABLES order."""
+    if len(progs) != len(TABLES) or len(tables) != len(TABLES):
+        raise ValueError(f"{len(progs)} programs and {len(tables)} tables, "
+                         f"want {len(TABLES)}")
+    n = int(acc.shape[0])
+    if tuple(acc.shape) != (n, 3) or not acc.is_contiguous():
+        raise ValueError(f"acc {tuple(acc.shape)}, want a contiguous (n, 3)")
+    T, D = terms(progs), int(ratios.shape[0])
+    if (tuple(w_pairs.shape) != (T, 2, 3) or len(slots) != T
+            or tuple(ratios.shape) != (D,) or tuple(starts.shape) != (D,)
+            or not 1 <= D <= T or not all(0 <= k < D for k in slots)):
+        raise ValueError(
+            f"w_pairs {tuple(w_pairs.shape)}, {len(slots)} slots, ratios "
+            f"{tuple(ratios.shape)}, starts {tuple(starts.shape)} for {T} "
+            "terms")
+    cols, zs, params = [], [], []
+    for prog, operands in zip(progs, tables):
+        c, z = _table_arguments(prog, n, *operands)
+        cols += c
+        zs += z
+        params += list(prog.params) + [0] * (MAX_PARAMS - len(prog.params))
+    ch, tm = _words(challenges, terminals)
+    return [
+        _array(ctypes.c_ulonglong, [p.key for p in progs]),
+        _array(ctypes.c_longlong, cols),
+        _array(ctypes.c_int, [p.base_width + p.ext_width for p in progs]),
+        _array(ctypes.c_longlong, zs), _array(ctypes.c_longlong, params),
+        _array(ctypes.c_int, [len(p.params) for p in progs]),
+        _array(ctypes.c_longlong, [operands[3] for operands in tables]), n,
+        _PTR(ch.data_ptr()), _PTR(tm.data_ptr()),
+        _PTR(w_pairs.data_ptr()), _PTR(ratios.data_ptr()),
+        _PTR(starts.data_ptr()), _array(ctypes.c_ubyte, slots), T, D,
+        (ch, tm),  # kept alive until the call returns
+    ]
+
+
+def quotient_combination(acc, progs: Sequence[Program], tables, challenges,
+                         terminals, w_pairs, ratios, starts,
+                         slots: Sequence[int]):
+    """F4: acc += Σ_t (w_pairs[t, 0] + w_pairs[t, 1]·starts[k]·ratios[k]^i)
+    · q_t[i], k = slots[t], for i < n over the combination's quotient terms
+    (`terms`): each table's `Table.quotients`, in TABLES order, then the
+    permutation arguments' (e_proc[0] - e_instr[0])·z and (e_proc[1] -
+    e_mem[0])·z, z the processor's boundary zerofier inverse. One launch
+    after its prologue (power tables and uniform values); acc (n, 3) is
+    updated in place and returned, and no (T, n, 3) stack is made.
+
+    `tables`: for each table (base_cw (width, n), ext_cw (n_ext, n, 3),
+    zinv {kind: (n,) or 0-dim}, rot[, base_next, ext_next]), the columns
+    at any strides (0 included), read where they lie, the next row at
+    position (i + rot) mod n, or base_next and ext_next at i (rot 0).
+    `progs`: each table's recorded program (`program(table)`), whose key the
+    library must hold and whose exponents it takes. challenges (11, 3),
+    terminals (5, 3); w_pairs (T, 2, 3); ratios and starts (D,), the x^s
+    progression of each distinct shift, and slots[t] term t's
+    (`distinct_shifts`). All on one CUDA device (a 0-dim CPU constant is
+    moved); a failed or refused launch raises."""
+    global LAUNCHES_QUOTIENT, LAUNCHES_QUOTIENT_PROLOGUE
+    flat = [x for operands in tables for x in (
+        operands[0], operands[1], *operands[2].values(), *operands[4:])]
+    device = card_device(acc, challenges, terminals, w_pairs, ratios, starts,
+                         *flat)
     if device is None:
-        raise ValueError("quotient_stack launches on a CUDA device only")
-    base_cw, ext_cw = _on(base_cw, device), _on(ext_cw, device)
-    if base_next is not None:
-        base_next, ext_next = _on(base_next, device), _on(ext_next, device)
-    challenges = _on(challenges, device).contiguous()
-    terminals = _on(terminals, device).contiguous()
-    zinv = {k: _on(zinv[k], device) for k in ZEROFIERS}
-    args, out = _arguments(table, prog, base_cw, ext_cw, challenges,
-                           terminals, zinv, rot, base_next, ext_next)
-    if out.numel() == 0:
-        return out
-    fn = _kernel_lib().quotients_launch
+        raise ValueError("quotient_combination launches on a CUDA device only")
+
+    def on(operands):
+        base, ext, zinv, rot, *nxt = operands
+        return (_on(base, device), _on(ext, device),
+                {k: _on(v, device) for k, v in zinv.items()}, rot,
+                *(_on(x, device) for x in nxt))
+
+    tables = [on(operands) for operands in tables]
+    acc = _on(acc, device)
+    w_pairs, ratios, starts = (_on(t, device).contiguous()
+                               for t in (w_pairs, ratios, starts))
+    args = _combination_arguments(
+        progs, tables, _on(challenges, device), _on(terminals, device),
+        w_pairs, ratios, starts, slots, acc)
+    n = int(acc.shape[0])
+    if n == 0:
+        return acc
+    lib = _kernel_lib()
+    scratch = acc.new_empty(
+        (int(ratios.shape[0]) * fk.acc_table_words(n)
+         + lib.quotients_uniform_words(),))
+    uniform = scratch[int(ratios.shape[0]) * fk.acc_table_words(n):]
     with torch.cuda.device(device):
-        rc = fn(table, *args, ctypes.c_void_p(_stream(device)))
+        rc = lib.quotients_launch(
+            *args[:-1], _PTR(scratch.data_ptr()), _PTR(uniform.data_ptr()),
+            _PTR(acc.data_ptr()), _PTR(_stream(device)))
     _check(rc, "quotients_launch")
+    LAUNCHES_QUOTIENT_PROLOGUE += 1
     LAUNCHES_QUOTIENT += 1
-    return out
+    return acc
+
+
+def plan(n: int, shifts: int) -> dict:
+    """The card's plan of an F4 launch (`quotients_plan`): threads a block,
+    blocks, blocks an SM holds, SMs, registers a thread, dynamic shared
+    bytes a block. Needs the card."""
+    out = (ctypes.c_longlong * 6)()
+    _check(_kernel_lib().quotients_plan(n, shifts, out), "quotients_plan")
+    keys = ("threads", "blocks", "blocks_per_sm", "sms", "registers",
+            "dynamic_shared_bytes")
+    return dict(zip(keys, out))
+
+
+def host_combination(acc, progs: Sequence[Program], tables, challenges,
+                     terminals, w_pairs, ratios, starts,
+                     slots: Sequence[int]):
+    """`quotient_combination` on CPU tensors through the g++ build of the
+    same bodies and weighing (`native/quotients_host.cpp`): the kernel's
+    arithmetic checked without a card. acc is updated in place and
+    returned; not counted as a launch."""
+    w_pairs, ratios, starts = (t.contiguous()
+                               for t in (w_pairs, ratios, starts))
+    args = _combination_arguments(progs, tables, challenges, terminals,
+                                  w_pairs, ratios, starts, slots, acc)
+    _check(_host_lib().quotients_acc_host(*args[:-1], _PTR(acc.data_ptr())),
+           "quotients_acc_host")
+    return acc
 
 
 def host_stack(table: int, prog: Program, base_cw, ext_cw, challenges,
                terminals, zinv: Dict[str, torch.Tensor], rot: int,
                base_next=None, ext_next=None):
-    """`quotient_stack` on CPU tensors through the g++ build of the same
-    generated body (`native/quotients_host.cpp`): the emitted C++ checked
-    without a card. Not counted as a launch."""
-    challenges, terminals = challenges.contiguous(), terminals.contiguous()
-    args, out = _arguments(table, prog, base_cw, ext_cw, challenges,
-                           terminals, zinv, rot, base_next, ext_next)
-    _check(_host_lib().quotients_host(table, *args), "quotients_host")
+    """Table `table`'s quotients (its index in TABLES) as the (T, n, 3)
+    int64 stack of `Table.quotients`, on CPU tensors, through the g++
+    build of F4's generated body with the stack sink
+    (`native/quotients_host.cpp`): the emitted C++ checked without a card,
+    table by table. Operands as one entry of `quotient_combination`'s
+    `tables`."""
+    if not 0 <= table < len(TABLES):
+        raise ValueError(f"no table {table}")
+    n = int(base_cw.shape[1])
+    cols, zs = _table_arguments(prog, n, base_cw, ext_cw, zinv, rot,
+                                base_next, ext_next)
+    ch, tm = _words(challenges, terminals)
+    out = base_cw.new_empty((len(prog.outputs), n, 3))
+    _check(_host_lib().quotients_host(
+        table, prog.key, _array(ctypes.c_longlong, cols),
+        prog.base_width + prog.ext_width, _array(ctypes.c_longlong, zs),
+        _PTR(ch.data_ptr()), _PTR(tm.data_ptr()),
+        _array(ctypes.c_longlong, prog.params), len(prog.params), n, rot,
+        _PTR(out.data_ptr())), "quotients_host")
     return out
 
 

@@ -52,7 +52,7 @@ ahead of a prove; the CUDA kernels are built once per source by
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -580,35 +580,85 @@ class BrainfuckStark:
             acc = f.add_plain(acc, _tree_sum(contrib))
         return acc
 
-    def _table_quotient_stack(self, ti, base_cw, ext_cw, challenges,
-                              terminals, zinv, ud: Optional[int] = None):
-        """All quotient codewords of table ti as one (T, n, 3) stack. `ud`
-        takes the place of the row shift for the streamed, per-class
+    def _quotient_combination(self, acc, base_cws, ext_cws, challenges,
+                              terminals, zinvs, w_pairs, ratios, starts,
+                              slots, uds: Optional[Sequence[int]] = None):
+        """acc += the combination's quotient terms: each table's quotients
+        (`Table.quotients`), then the permutation arguments' two difference
+        quotients, each weighed by (w_plain + w_shift·x^s) as `_acc_group`
+        weighs a group, in that order (the JAX package's comb_quot{ti} and
+        comb_acc_q{T} for each table, then comb_pa and comb_acc_q2).
+        zinvs: each table's zerofier inverses; w_pairs (T, 2, 3); ratios and
+        starts (D,), the x^s progression of each distinct shift, and
+        slots[t] term t's (`quotient_kernels.distinct_shifts`). `uds` takes
+        the place of the tables' row shifts for the streamed, per-class
         evaluation, where a shift by unit_distance over the domain is a
         shift by unit_distance/B within each strided class. On a CUDA
-        device one launch of kernel F4 (`quotient_kernels.quotient_stack`,
-        the port's form of the JAX package's compiled `comb_quot{ti}`),
-        which reads the columns where they lie and the next row at the
-        shifted position (under a mesh, from the columns `mesh.roll`
-        brought); on the CPU `_table_quotient_stack_plain`."""
-        if fk.card_device(base_cw, ext_cw, challenges, terminals,
-                          *zinv.values()) is None:
-            return self._table_quotient_stack_plain(
-                ti, base_cw, ext_cw, challenges, terminals, zinv, ud)
-        t = self.tables[ti]
+        device one launch of kernel F4 (`quotient_kernels.
+        quotient_combination`, after its prologue), which reads the columns
+        where they lie and each next row at its shifted position (under a
+        mesh, from the columns `mesh.roll` brought), updates acc in place
+        and makes no (T, n, 3) stack; on the CPU
+        `_quotient_combination_plain`."""
+        operands = (acc, *base_cws, *ext_cws, challenges, terminals,
+                    *(z for zinv in zinvs for z in zinv.values()), w_pairs,
+                    ratios, starts)
+        if fk.card_device(*operands) is None:
+            return self._quotient_combination_plain(
+                acc, base_cws, ext_cws, challenges, terminals, zinvs,
+                w_pairs, ratios, starts, slots, uds)
         N = self.fri.domain.length
-        sharded = ud is None and self.mesh is not None
-        if ud is None:
-            ud = t.unit_distance(N)
-        prog = self._quotient_program(ti)
-        n = base_cw.shape[1]
-        if sharded and ud:
-            return qk.quotient_stack(
-                ti, prog, base_cw, ext_cw, challenges, terminals, zinv, 0,
-                self.mesh.roll(base_cw, ud, 1, N),
-                self.mesh.roll(ext_cw, ud, 1, N))
-        return qk.quotient_stack(ti, prog, base_cw, ext_cw, challenges,
-                                 terminals, zinv, ud % n)
+        n = int(acc.shape[0])
+        sharded = uds is None and self.mesh is not None
+        tables = []
+        for ti, t in enumerate(self.tables):
+            ud = t.unit_distance(N) if uds is None else uds[ti]
+            base, ext = base_cws[ti], ext_cws[ti]
+            if sharded and ud:
+                tables.append((base, ext, zinvs[ti], 0,
+                               self.mesh.roll(base, ud, 1, N),
+                               self.mesh.roll(ext, ud, 1, N)))
+            else:
+                tables.append((base, ext, zinvs[ti], ud % n))
+        progs = [self._quotient_program(ti) for ti in range(len(self.tables))]
+        return qk.quotient_combination(acc, progs, tables, challenges,
+                                       terminals, w_pairs, ratios, starts,
+                                       slots)
+
+    def _quotient_combination_plain(self, acc, base_cws, ext_cws,
+                                    challenges, terminals, zinvs, w_pairs,
+                                    ratios, starts, slots,
+                                    uds: Optional[Sequence[int]] = None):
+        """`_quotient_combination` op by op: each table's
+        `_table_quotient_stack_plain`, then the permutation stack, each
+        through `_acc_group_plain`. On CUDA tensors the stacks' field
+        operations are F1/F2 launches (the form F4 replaced, kept as its
+        yardstick)."""
+        n = int(acc.shape[0])
+        index = torch.tensor(slots, device=ratios.device)
+        ratios, starts = ratios[index], starts[index]
+        pos = 0
+        for ti in range(len(self.tables)):
+            stack = self._table_quotient_stack_plain(
+                ti, base_cws[ti], ext_cws[ti], challenges, terminals,
+                zinvs[ti], None if uds is None else uds[ti])
+            sl = slice(pos, pos + stack.shape[0])
+            acc = self._acc_group_plain(acc, stack, w_pairs[sl], ratios[sl],
+                                        starts[sl], length=n)
+            pos = sl.stop
+            del stack
+        # the permutation arguments' difference quotients
+        boundary = zinvs[0]["boundary"]
+        pa_stack = torch.stack(
+            [
+                xf.mul_base(xf.sub(ext_cws[0][0], ext_cws[1][0]), boundary),
+                xf.mul_base(xf.sub(ext_cws[0][1], ext_cws[2][0]), boundary),
+            ],
+            dim=0,
+        )
+        assert pos + 2 == w_pairs.shape[0], "term/shift bookkeeping mismatch"
+        return self._acc_group_plain(acc, pa_stack, w_pairs[pos:],
+                                     ratios[pos:], starts[pos:], length=n)
 
     def _quotient_program(self, ti):
         """Table ti's recorded quotient program (`quotient_kernels.program`),
@@ -626,11 +676,12 @@ class BrainfuckStark:
     def _table_quotient_stack_plain(self, ti, base_cw, ext_cw, challenges,
                                     terminals, zinv,
                                     ud: Optional[int] = None):
-        """`_table_quotient_stack` op by op: `Table.quotients` over
-        `ArrayAlgebra`, the next row a rolled copy of the columns. On CPU
-        tensors the plain field operations; on CUDA tensors every operation
-        is its own F1/F2 launch (the form F4 replaced, kept as its
-        yardstick)."""
+        """All quotient codewords of table ti as one (T, n, 3) stack, op by
+        op: `Table.quotients` over `ArrayAlgebra`, the next row a rolled
+        copy of the columns (under a mesh, rolled across the ranks by
+        `mesh.roll`). `ud` takes the place of the row shift in a streamed
+        class. On CPU tensors the plain field operations; on CUDA tensors
+        every operation is its own F1/F2 launch."""
         t = self.tables[ti]
         alg = ArrayAlgebra(self.device)
         ch_vals = [alg.x(challenges[i]) for i in range(11)]
@@ -846,7 +897,7 @@ class BrainfuckStark:
 
     def _stream_combination(self, base_groups, ext_groups, challenges_arr,
                             terminals_arr, weights_h, shifts, offset_pows,
-                            splan, table_quot_counts):
+                            splan):
         """Quotients and the nonlinear combination evaluated per strided
         class; returns the assembled (N, 3) combination codeword."""
         dev = self.device
@@ -855,15 +906,22 @@ class BrainfuckStark:
         zs = self._zinv_stream()
         scale_len_b = max(int(g.shape[1]) for g in base_groups)
         scale_len_e = max(int(g.shape[1]) for g in ext_groups)
-        # per-term ratios (ω^B)^s are the same for every class
-        ratios = u64_to_tensor(
-            [f.h_pow(omega, (B * int(sh)) % N) for sh in shifts], dev
-        )
         w0 = u64_to_tensor(weights_h[0], dev)
         w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
         wbs = f.powers(omega, B, dev)
         num_base = sum(t.base_width for t in self.tables)
         num_ext = sum(t.num_ext_columns for t in self.tables)
+        # the base and extension terms each with its x^s progression, the
+        # quotient terms with one a distinct shift (`terms`); per-term
+        # ratios (ω^B)^s are the same for every class
+        q0 = num_base + num_ext
+        slots, distinct = qk.distinct_shifts(shifts[q0:])
+        terms = list(range(q0)) + [q0 + slots.index(k)
+                                   for k in range(len(distinct))]
+        ratios = u64_to_tensor(
+            [f.h_pow(omega, (B * int(shifts[j])) % N) for j in terms], dev
+        )
+        uds = [t.unit_distance(N) // B for t in self.tables]
 
         # leaf i = q·B + b  ->  comb[q, b] = class b's value at position q
         comb = torch.empty((S, B, 3), dtype=torch.int64, device=dev)
@@ -873,8 +931,8 @@ class BrainfuckStark:
             starts = u64_to_tensor(
                 [
                     f.h_mul(int(offset_pows[j]),
-                            f.h_pow(omega, (b * int(sh)) % N))
-                    for j, sh in enumerate(shifts)
+                            f.h_pow(omega, (b * int(shifts[j])) % N))
+                    for j in terms
                 ],
                 dev,
             )
@@ -887,51 +945,27 @@ class BrainfuckStark:
 
             acc = xf.mul(w0[None, :].expand(S, 3),
                          base_vals[:3].movedim(0, -1))
-            pos = 0
-
-            def span(count):
-                nonlocal pos
-                sl = slice(pos, pos + count)
-                pos += count
-                return w_pairs[sl], ratios[sl], starts[sl]
-
-            acc = self._acc_group(acc, base_vals[3:], *span(num_base),
+            acc = self._acc_group(acc, base_vals[3:], w_pairs[:num_base],
+                                  ratios[:num_base], starts[:num_base],
                                   length=S)
-            acc = self._acc_group(acc, ext_vals, *span(num_ext), length=S)
+            acc = self._acc_group(acc, ext_vals, w_pairs[num_base:q0],
+                                  ratios[num_base:q0], starts[num_base:q0],
+                                  length=S)
 
+            base_cws_b, ext_cws_b = [], []
             row0, ext0 = 3, 0
-            ext_cws_b = []
-            for ti, t in enumerate(self.tables):
-                base_cw_b = base_vals[row0 : row0 + t.base_width]
-                ext_cw_b = ext_vals[ext0 : ext0 + t.num_ext_columns]
-                ext_cws_b.append(ext_cw_b)
+            for t in self.tables:
+                base_cws_b.append(base_vals[row0 : row0 + t.base_width])
+                ext_cws_b.append(ext_vals[ext0 : ext0 + t.num_ext_columns])
                 row0 += t.base_width
                 ext0 += t.num_ext_columns
-                ud_b = t.unit_distance(N) // B
-                stack = self._table_quotient_stack(
-                    ti, base_cw_b, ext_cw_b, challenges_arr, terminals_arr,
-                    zinv_b[t.height], ud=ud_b,
-                )
-                acc = self._acc_group(
-                    acc, stack, *span(table_quot_counts[ti]), length=S
-                )
-                del stack
-
-            # permutation-argument difference quotients
-            boundary = zinv_b[self.tables[0].height]["boundary"]
-            pa_stack = torch.stack(
-                [
-                    xf.mul_base(xf.sub(ext_cws_b[0][0], ext_cws_b[1][0]),
-                                boundary),
-                    xf.mul_base(xf.sub(ext_cws_b[0][1], ext_cws_b[2][0]),
-                                boundary),
-                ],
-                dim=0,
+            acc = self._quotient_combination(
+                acc, base_cws_b, ext_cws_b, challenges_arr, terminals_arr,
+                [zinv_b[t.height] for t in self.tables], w_pairs[q0:],
+                ratios[q0:], starts[q0:], slots, uds,
             )
-            acc = self._acc_group(acc, pa_stack, *span(2), length=S)
-            assert pos == len(shifts), "term/shift bookkeeping mismatch"
             comb[:, b] = acc
-            del base_vals, ext_vals, ext_cws_b, zinv_b, acc
+            del base_vals, ext_vals, base_cws_b, ext_cws_b, zinv_b, acc
         return comb.reshape(N, 3)
 
     def _combination_pipeline(self, rand_cw, base_cws, ext_cws,
@@ -942,58 +976,44 @@ class BrainfuckStark:
         committed, and the verifier recomputes quotients from openings."""
         dev = self.device
         omega = self.fri.domain.omega
-        # under a mesh the rank's block: N points from index lo, whose x^s
-        # rows start at (offset·ω^lo)^s with the unchanged ratio ω^s
+        num_base = sum(t.base_width for t in self.tables)
+        num_ext = sum(t.num_ext_columns for t in self.tables)
+        # the base and extension terms each with its x^s progression, the
+        # quotient terms with one a distinct shift (`terms`); under a mesh
+        # the rank's block: N points from index lo, whose x^s rows start at
+        # (offset·ω^lo)^s with the unchanged ratio ω^s
+        q0 = num_base + num_ext
+        slots, distinct = qk.distinct_shifts(shifts[q0:])
+        terms = list(range(q0)) + [q0 + slots.index(k)
+                                   for k in range(len(distinct))]
         lo, N = self._block()
-        ratios = u64_to_tensor([f.h_pow(omega, int(s)) for s in shifts], dev)
+        ratios = u64_to_tensor([f.h_pow(omega, int(shifts[j])) for j in terms],
+                               dev)
         opows = u64_to_tensor(
-            [f.h_mul(int(p), f.h_pow(omega, lo * int(s)))
-             for p, s in zip(offset_pows, shifts)] if lo else offset_pows,
+            [f.h_mul(int(offset_pows[j]), f.h_pow(omega, lo * int(shifts[j])))
+             if lo else offset_pows[j] for j in terms],
             dev,
         )
         w0 = u64_to_tensor(weights_h[0], dev)
         w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
         zinv = self._zerofier_inverses()
 
-        def acc_group(acc, parts, start):
-            sl = slice(start, start + sum(q.shape[0] for q in parts))
-            return (
-                self._acc_group(acc, parts, w_pairs[sl], ratios[sl],
-                                opows[sl], length=N),
-                sl.stop,
-            )
-
         acc = xf.mul(w0[None, :].expand(N, 3), rand_cw)
         # the base and extension groups as the LDE tensors' column views;
         # an empty table's extension columns (zeros) as a zero-stride view
-        # of one zero word, which F3 reads without touching N words
-        acc, pos = acc_group(acc, list(base_cws), 0)
-        acc, pos = acc_group(
-            acc,
-            [cw if t.height else cw.new_zeros(()).expand(cw.shape)
-             for t, cw in zip(self.tables, ext_cws)],
-            pos,
+        # of one zero word, which F3 and F4 read without touching N words
+        ext_cws = [cw if t.height else cw.new_zeros(()).expand(cw.shape)
+                   for t, cw in zip(self.tables, ext_cws)]
+        acc = self._acc_group(acc, list(base_cws), w_pairs[:num_base],
+                              ratios[:num_base], opows[:num_base], length=N)
+        acc = self._acc_group(acc, ext_cws, w_pairs[num_base:q0],
+                              ratios[num_base:q0], opows[num_base:q0],
+                              length=N)
+        return self._quotient_combination(
+            acc, base_cws, ext_cws, challenges_arr, terminals_arr,
+            [zinv[t.height] for t in self.tables], w_pairs[q0:],
+            ratios[q0:], opows[q0:], slots,
         )
-        for ti, t in enumerate(self.tables):
-            stack = self._table_quotient_stack(
-                ti, base_cws[ti], ext_cws[ti], challenges_arr, terminals_arr,
-                zinv[t.height],
-            )
-            acc, pos = acc_group(acc, [stack], pos)
-            del stack
-
-        # permutation-argument difference quotients
-        boundary = zinv[self.tables[0].height]["boundary"]
-        pa_stack = torch.stack(
-            [
-                xf.mul_base(xf.sub(ext_cws[0][0], ext_cws[1][0]), boundary),
-                xf.mul_base(xf.sub(ext_cws[0][1], ext_cws[2][0]), boundary),
-            ],
-            dim=0,
-        )
-        acc, pos = acc_group(acc, [pa_stack], pos)
-        assert pos == len(shifts), "term/shift bookkeeping mismatch"
-        return acc
 
     # ------------------------------------------------------------------
     # prover
@@ -1185,11 +1205,9 @@ class BrainfuckStark:
 
         # 9. quotient degree bounds (host, symbolic; ref :210-218)
         quotient_degree_bounds = []
-        table_quot_counts = []
         for t in self.tables:
-            bounds = t.all_quotient_degree_bounds(challenges_h, terminals_h)
-            table_quot_counts.append(len(bounds))
-            quotient_degree_bounds += bounds
+            quotient_degree_bounds += t.all_quotient_degree_bounds(
+                challenges_h, terminals_h)
         for pa in self.permutation_arguments:
             quotient_degree_bounds.append(pa.quotient_degree_bound())
 
@@ -1217,7 +1235,7 @@ class BrainfuckStark:
         if use_stream:
             combination = self._stream_combination(
                 base_groups, ext_groups, challenges_arr, terminals_arr,
-                weights_h, shifts, offset_pows, splan, table_quot_counts,
+                weights_h, shifts, offset_pows, splan,
             )
         else:
             combination = self._combination_pipeline(

@@ -293,8 +293,13 @@ def test_acc_group_plain_matches_jax(ext, T_, length):
 
 
 def _field_cu_const(name):
-    with open(CSRC) as fh:
-        return int(re.search(rf"{name} = (\d+);", fh.read()).group(1))
+    """A constant of csrc/field.cu or of the header it shares with F4,
+    csrc/accumulate.cuh (the power tables' split)."""
+    text = ""
+    for path in (CSRC, os.path.join(os.path.dirname(CSRC), "accumulate.cuh")):
+        with open(path) as fh:
+            text += fh.read()
+    return int(re.search(rf"{name} = (\d+);", text).group(1))
 
 
 M64 = 2**64 - 1
