@@ -1,0 +1,12 @@
+"""stage_s.combination: seconds a prove spends in the quotients and the
+combination: the mark 'stage_c (quotients+combination)'; the mean over the
+window's proves of the times the prover reports (last_metrics["stages_s"],
+each mark after a device synchronise)."""
+
+MATCH = lambda k: k == 'stage_c (quotients+combination)'
+
+
+def read(ctx):
+    seen = [sum(s for k, s in j.stages.items() if MATCH(k)) for j in ctx.jobs
+            if any(MATCH(k) for k in j.stages)]
+    return sum(seen) / len(seen) if seen else None
