@@ -15,6 +15,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .utils.metrics import to_host, transfer
+
 MASK64 = (1 << 64) - 1
 
 
@@ -28,13 +30,12 @@ def u64_to_tensor(arr, device=None) -> torch.Tensor:
     """u64 ndarray (or anything numpy turns into one) -> int64 tensor with
     identical bits, on `device`."""
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
-    t = torch.from_numpy(a.view(np.int64).copy())
-    return t if device is None else t.to(device)
+    return transfer(torch.from_numpy(a.view(np.int64).copy()), device)
 
 
 def tensor_to_u64(t: torch.Tensor) -> np.ndarray:
     """int64 tensor -> host u64 ndarray with identical bits."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+    return to_host(t.detach()).contiguous().numpy().view(np.uint64)
 
 
 def digest_planes_to_words(lo, hi, device=None) -> torch.Tensor:

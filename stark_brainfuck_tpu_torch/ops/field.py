@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import to_i64
+from ..utils.metrics import transfer
 from . import field_kernels as fk
 
 P = 0xFFFFFFFF00000001  # 2^64 - 2^32 + 1
@@ -54,7 +55,8 @@ def _hi32(x):
 
 def const(v: int, like: torch.Tensor) -> torch.Tensor:
     """Scalar field constant on the device of `like`."""
-    return torch.tensor(to_i64(v % P), dtype=torch.int64, device=like.device)
+    return transfer(torch.tensor(to_i64(v % P), dtype=torch.int64),
+                    like.device)
 
 
 def add(a, b):
@@ -238,8 +240,8 @@ def powers(base: int, count: int, device=None):
     b = base % P
     while length < count:
         take = min(length, count - length)
-        factor = torch.tensor(
-            to_i64(h_pow(b, length)), dtype=torch.int64, device=device
+        factor = transfer(
+            torch.tensor(to_i64(h_pow(b, length)), dtype=torch.int64), device
         )
         out = torch.cat([out, mul(out[:take], factor)])
         length += take

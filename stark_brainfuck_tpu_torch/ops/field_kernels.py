@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.metrics import transfer
 from . import cuda_build
 
 # launches of F1, F2 and F3 since import (or since a caller reset them);
@@ -117,7 +118,7 @@ def card_device(*operands) -> Optional[torch.device]:
 def _on(t, device):
     if t.dtype != torch.int64:
         raise ValueError(f"field kernels take int64 tensors, not {t.dtype}")
-    return t if t.device == device else t.to(device)
+    return t if t.device == device else transfer(t, device)
 
 
 def _broadcast_shape(*shapes) -> tuple:

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..convert import to_i64
+from ..utils.metrics import transfer
 from . import cuda_build
 from . import field as f
 from . import ntt as nt
@@ -133,7 +134,7 @@ def step_table(m: int, root: int, device=None) -> torch.Tensor:
         chunks.append(powers[(m // n) * j[:, None] * p[None, :]].reshape(-1))
         n //= R
     table = torch.cat(chunks) if chunks else torch.ones(1, dtype=torch.int64)
-    return table if device is None else table.to(device)
+    return transfer(table, device)
 
 
 def root_kappa(m: int, root: int) -> int:
@@ -173,7 +174,7 @@ def twiddle_values(rows: int, cols: int, root: int, row_stride: int = 1,
         dtype=torch.int64,
     )
     table = f.geometric_rows(torch.ones_like(ratios), ratios, cols)
-    return table if device is None else table.to(device)
+    return transfer(table, device)
 
 
 def outer_tables(n: int, r: int, root: int, device=None):

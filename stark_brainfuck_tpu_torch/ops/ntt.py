@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..convert import to_i64
+from ..utils.metrics import transfer
 from . import field as f
 from .field import P
 
@@ -67,8 +68,8 @@ def _stage_twiddles(n: int, root: int) -> tuple:
 
 
 def _inv_scalar(n: int, device):
-    return torch.tensor(
-        to_i64(f.h_inverse(n % P)), dtype=torch.int64, device=device
+    return transfer(
+        torch.tensor(to_i64(f.h_inverse(n % P)), dtype=torch.int64), device
     )
 
 
@@ -89,8 +90,8 @@ def _make_small_pack(n: int, root: int, inverse: bool, device) -> TwiddlePack:
         )
     r = f.h_inverse(root) if inverse else root
     return TwiddlePack(
-        perm=_bitrev_permutation(n).to(device),
-        stages=tuple(s.to(device) for s in _stage_twiddles(n, r)),
+        perm=transfer(_bitrev_permutation(n), device),
+        stages=tuple(transfer(s, device) for s in _stage_twiddles(n, r)),
         n_inv=_inv_scalar(n, device) if inverse else None,
     )
 

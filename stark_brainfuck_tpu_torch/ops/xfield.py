@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..convert import to_i64
+from ..utils.metrics import transfer
 from . import field as f
 from . import field_kernels as fk
 from .field import P
@@ -30,10 +31,9 @@ def from_base(a):
 
 
 def scalar(c0: int, c1: int = 0, c2: int = 0, device=None):
-    return torch.tensor(
-        [to_i64(c0 % P), to_i64(c1 % P), to_i64(c2 % P)],
-        dtype=torch.int64, device=device,
-    )
+    return transfer(torch.tensor(
+        [to_i64(c0 % P), to_i64(c1 % P), to_i64(c2 % P)], dtype=torch.int64,
+    ), device)
 
 
 def zeros(shape, device=None):

@@ -46,6 +46,7 @@ import torch
 from ..convert import tensor_to_u64, u64_to_tensor
 from ..ops import blake2b as B
 from ..ops import field as f
+from ..utils.metrics import span, transfer
 
 HASH_LEN = 64
 _HOST_CUT = 512  # finish the tree on host once a level fits in 32 KB
@@ -100,7 +101,7 @@ def _prf_messages(key, ctr):
     """(n, 16) one-block messages key16 ‖ LE64(ctr), zero-padded."""
     n = int(ctr.shape[0])
     msg = torch.zeros((n, 16), dtype=torch.int64, device=ctr.device)
-    msg[:, 0:2] = key.to(ctr.device)[None, :]
+    msg[:, 0:2] = transfer(key, ctr.device)[None, :]
     msg[:, 2] = ctr
     return msg
 
@@ -189,7 +190,8 @@ class DeviceMerkle:
         # first leaf of the rank's block
         self.first = 0 if mesh is None else mesh.block(n)[0]
         if levels is None:
-            levels = build_levels(rows, salts, cut, _HOST_CUT // world)
+            with span("commit"):
+                levels = build_levels(rows, salts, cut, _HOST_CUT // world)
         self.levels = tuple(levels)  # level `cut`..host-cut, on the device
         self._finish_host_top()
         self._node_cache: Dict[Tuple[int, int], bytes] = {}
@@ -197,12 +199,15 @@ class DeviceMerkle:
         self._salt_cache: Dict[int, bytes] = {}
 
     def _finish_host_top(self):
-        top = self.levels[-1]
-        if self.mesh is not None:
-            top = self.mesh.all_gather(top, name="tree_top")
-            assert int(top.shape[0]) == _HOST_CUT, top.shape
+        """Read the host-cut level to the host (a span `root` of the prove
+        in progress) and hash the top of the tree there."""
+        with span("root"):
+            top = self.levels[-1]
+            if self.mesh is not None:
+                top = self.mesh.all_gather(top, name="tree_top")
+                assert int(top.shape[0]) == _HOST_CUT, top.shape
+            digests = B.digests_to_bytes(top)
         cut = int(top.shape[0])
-        digests = B.digests_to_bytes(top)
         nodes = bytearray(2 * cut * HASH_LEN)
         nodes[cut * HASH_LEN :] = digests
         for i in range(cut - 1, 0, -1):
@@ -243,7 +248,8 @@ class DeviceMerkle:
             """Rows `positions` (global, sorted) of a level-`lvl` array."""
             first, own = self.first >> lvl, int(source.shape[0])
             mine = [p - first for p in positions if 0 <= p - first < own]
-            lidx = torch.tensor(mine, dtype=torch.int64, device=source.device)
+            lidx = transfer(torch.tensor(mine, dtype=torch.int64),
+                            source.device)
             gathered.append(source.index_select(0, lidx))
             if self.mesh is not None:
                 per_rank = [0] * self.mesh.world

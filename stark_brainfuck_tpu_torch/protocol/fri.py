@@ -33,7 +33,6 @@ with a sharding constraint and finishes small rounds through `to_host`.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -43,6 +42,7 @@ from ..ops import field as f
 from ..ops import fri_kernels as fk
 from ..ops import ntt as nt
 from ..ops import xfield as xf
+from ..utils.metrics import current, span, to_host
 from .channel import ProofStream, reject, sample_indices_fri
 from .device_merkle import _HOST_CUT, DeviceMerkle, prefetch_trees
 from .merkle import Merkle
@@ -193,17 +193,19 @@ class Fri:
             sharded = False
         if not on_device:
             # every round is a host round
-            codeword = codeword.cpu()
+            codeword = to_host(codeword)
 
-        # per-round wall time (commit side), surfaced as fri_round_s
-        self.last_round_s: List[float] = []
-        t_round = time.time()
-
+        # each fold round is a span `round` of the prove in progress (its
+        # seconds are `last_metrics["fri_round_s"]`); the last round, which
+        # only commits, is not one
+        recorder = current()
         pending_tree = None  # device tree of the current codeword
         for r in range(self.num_rounds()):
             N = self.domain.length >> r
+            if recorder is not None and r < self.num_rounds() - 1:
+                recorder.begin("round")
             if on_device and N < self.host_min:
-                codeword = codeword.cpu()
+                codeword = to_host(codeword)
                 on_device = False
                 pending_tree = None
             if r == 0 and tree0 is not None:
@@ -260,9 +262,8 @@ class Fri:
 
             omega = f.h_mul(omega, omega)
             offset = f.h_mul(offset, offset)
-            now = time.time()
-            self.last_round_s.append(round(now - t_round, 4))
-            t_round = now
+            if recorder is not None:
+                recorder.end()
 
         last = leaf_objs[-1]
         if isinstance(last, (_LazyLeaves, _DeviceTreeLeaves)):
@@ -322,48 +323,50 @@ class Fri:
             leaf_objs0=leaf_objs0,
         )
 
-        top_level_indices = sample_indices_fri(
-            proof_stream.prover_fiat_shamir(),
-            lengths[1] if len(lengths) > 1 else lengths[0],
-            lengths[-1],
-            self.num_colinearity_tests,
-        )
-        indices = list(top_level_indices)
-
-        # every round's query indices are known now: gather all device
-        # trees' openings in one pass
-        want = {}
-        probe = list(top_level_indices)
-        for i in range(len(trees)):
-            half = lengths[i] // 2
-            probe = [idx % half for idx in probe]
-            s = want.setdefault(id(trees[i]), (trees[i], set()))[1]
-            s.update(probe)
-            s.update(idx + half for idx in probe)
-            if i + 1 < len(leaf_objs) and i + 1 < len(trees):
-                s2 = want.setdefault(
-                    id(trees[i + 1]), (trees[i + 1], set())
-                )[1]
-                s2.update(probe)
-        batch = [
-            (tree, sorted(idxs))
-            for tree, idxs in want.values()
-            if isinstance(tree, DeviceMerkle)
-        ]
-        if batch:
-            prefetch_trees(batch)
-
-        for i in range(len(trees) - 1):
-            indices = [idx % (lengths[i] // 2) for idx in indices]
-            self.query(
-                trees[i], trees[i + 1], leaf_objs[i], leaf_objs[i + 1],
-                indices, proof_stream,
+        # the query phase: every round's openings gathered, then pushed
+        with span("query"):
+            top_level_indices = sample_indices_fri(
+                proof_stream.prover_fiat_shamir(),
+                lengths[1] if len(lengths) > 1 else lengths[0],
+                lengths[-1],
+                self.num_colinearity_tests,
             )
-        indices = [idx % lengths[-1] for idx in indices]
-        self.query_last(
-            trees[-1], leaf_objs[len(trees) - 1], leaf_objs[-1], indices,
-            proof_stream,
-        )
+            indices = list(top_level_indices)
+
+            # every round's query indices are known now: gather all device
+            # trees' openings in one pass
+            want = {}
+            probe = list(top_level_indices)
+            for i in range(len(trees)):
+                half = lengths[i] // 2
+                probe = [idx % half for idx in probe]
+                s = want.setdefault(id(trees[i]), (trees[i], set()))[1]
+                s.update(probe)
+                s.update(idx + half for idx in probe)
+                if i + 1 < len(leaf_objs) and i + 1 < len(trees):
+                    s2 = want.setdefault(
+                        id(trees[i + 1]), (trees[i + 1], set())
+                    )[1]
+                    s2.update(probe)
+            batch = [
+                (tree, sorted(idxs))
+                for tree, idxs in want.values()
+                if isinstance(tree, DeviceMerkle)
+            ]
+            if batch:
+                prefetch_trees(batch)
+
+            for i in range(len(trees) - 1):
+                indices = [idx % (lengths[i] // 2) for idx in indices]
+                self.query(
+                    trees[i], trees[i + 1], leaf_objs[i], leaf_objs[i + 1],
+                    indices, proof_stream,
+                )
+            indices = [idx % lengths[-1] for idx in indices]
+            self.query_last(
+                trees[-1], leaf_objs[len(trees) - 1], leaf_objs[-1], indices,
+                proof_stream,
+            )
         return top_level_indices
 
     # -- verifier -----------------------------------------------------------

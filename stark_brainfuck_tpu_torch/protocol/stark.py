@@ -65,7 +65,6 @@ from ..models.io import InputTable, OutputTable
 from ..models.memory import MemoryTable
 from ..models.processor import ProcessorTable
 from ..models.table import roundup_npo2
-from ..ops import blake2b as B
 from ..ops import field as f
 from ..ops import field_kernels as fk
 from ..ops import kernel_ntt as kn
@@ -80,7 +79,7 @@ from ..utils.checkpoint import (
     proof_key,
     save_commit_stage,
 )
-from ..utils.metrics import StageTimer
+from ..utils.metrics import SpanRecorder, span, to_host, transfer
 from ..utils.rng import Rng
 from .arguments import (
     PermutationArgument,
@@ -315,7 +314,7 @@ class BrainfuckStark:
         mesh = self.mesh
 
         def whole(x, dim):
-            return (x if mesh is None else mesh.all_gather(x, dim=dim)).cpu()
+            return to_host(x if mesh is None else mesh.all_gather(x, dim=dim))
 
         alg = ArrayAlgebra("cpu")
         N = self.fri.domain.length
@@ -635,7 +634,7 @@ class BrainfuckStark:
         operations are F1/F2 launches (the form F4 replaced, kept as its
         yardstick)."""
         n = int(acc.shape[0])
-        index = torch.tensor(slots, device=ratios.device)
+        index = transfer(torch.tensor(slots), ratios.device)
         ratios, starts = ratios[index], starts[index]
         pos = 0
         for ti in range(len(self.tables)):
@@ -769,13 +768,13 @@ class BrainfuckStark:
         got = load_commit_stage(cfg.checkpoint_dir, key, tag)
         if got is not None:
             self.last_commit_resumes.append(tag)
-            top = torch.from_numpy(got).to(self.device)
+            top = transfer(torch.from_numpy(got), self.device)
             return StreamedSaltedMerkle(splan["N"], splan["B"], top, salt_key)
         tree = streamed_commit(groups, salt_key, splan)
         # levels[0] is the level-log2(B) digest array that the ladder builds
         # everything above from
         save_commit_stage(
-            cfg.checkpoint_dir, key, tag, tree.levels[0].cpu().numpy()
+            cfg.checkpoint_dir, key, tag, to_host(tree.levels[0]).numpy()
         )
         return tree
 
@@ -903,7 +902,8 @@ class BrainfuckStark:
         dev = self.device
         N, B, S = splan["N"], splan["B"], splan["S"]
         omega = splan["omega"]
-        zs = self._zinv_stream()
+        with span("zerofiers"):
+            zs = self._zinv_stream()
         scale_len_b = max(int(g.shape[1]) for g in base_groups)
         scale_len_e = max(int(g.shape[1]) for g in ext_groups)
         w0 = u64_to_tensor(weights_h[0], dev)
@@ -926,46 +926,47 @@ class BrainfuckStark:
         # leaf i = q·B + b  ->  comb[q, b] = class b's value at position q
         comb = torch.empty((S, B, 3), dtype=torch.int64, device=dev)
         for b in range(B):
-            wb = wbs[b : b + 1]
-            # per-term x^s starts on this class: (offset·ω^b)^s
-            starts = u64_to_tensor(
-                [
-                    f.h_mul(int(offset_pows[j]),
-                            f.h_pow(omega, (b * int(shifts[j])) % N))
-                    for j in terms
-                ],
-                dev,
-            )
-            base_vals = block_values(base_groups, wb, scale_len_b,
-                                     splan["pack_S"], S)
-            ext_vals = block_values(
-                ext_groups, wb, scale_len_e, splan["pack_S"], S
-            ).reshape(num_ext, 3, S).movedim(1, -1)  # (num_ext, S, 3)
-            zinv_b = self._stream_zinv_block(b, zs, splan)
+            with span("class"):
+                wb = wbs[b : b + 1]
+                # per-term x^s starts on this class: (offset·ω^b)^s
+                starts = u64_to_tensor(
+                    [
+                        f.h_mul(int(offset_pows[j]),
+                                f.h_pow(omega, (b * int(shifts[j])) % N))
+                        for j in terms
+                    ],
+                    dev,
+                )
+                base_vals = block_values(base_groups, wb, scale_len_b,
+                                         splan["pack_S"], S)
+                ext_vals = block_values(
+                    ext_groups, wb, scale_len_e, splan["pack_S"], S
+                ).reshape(num_ext, 3, S).movedim(1, -1)  # (num_ext, S, 3)
+                zinv_b = self._stream_zinv_block(b, zs, splan)
 
-            acc = xf.mul(w0[None, :].expand(S, 3),
-                         base_vals[:3].movedim(0, -1))
-            acc = self._acc_group(acc, base_vals[3:], w_pairs[:num_base],
-                                  ratios[:num_base], starts[:num_base],
-                                  length=S)
-            acc = self._acc_group(acc, ext_vals, w_pairs[num_base:q0],
-                                  ratios[num_base:q0], starts[num_base:q0],
-                                  length=S)
+                acc = xf.mul(w0[None, :].expand(S, 3),
+                             base_vals[:3].movedim(0, -1))
+                acc = self._acc_group(acc, base_vals[3:], w_pairs[:num_base],
+                                      ratios[:num_base], starts[:num_base],
+                                      length=S)
+                acc = self._acc_group(acc, ext_vals, w_pairs[num_base:q0],
+                                      ratios[num_base:q0], starts[num_base:q0],
+                                      length=S)
 
-            base_cws_b, ext_cws_b = [], []
-            row0, ext0 = 3, 0
-            for t in self.tables:
-                base_cws_b.append(base_vals[row0 : row0 + t.base_width])
-                ext_cws_b.append(ext_vals[ext0 : ext0 + t.num_ext_columns])
-                row0 += t.base_width
-                ext0 += t.num_ext_columns
-            acc = self._quotient_combination(
-                acc, base_cws_b, ext_cws_b, challenges_arr, terminals_arr,
-                [zinv_b[t.height] for t in self.tables], w_pairs[q0:],
-                ratios[q0:], starts[q0:], slots, uds,
-            )
-            comb[:, b] = acc
-            del base_vals, ext_vals, base_cws_b, ext_cws_b, zinv_b, acc
+                base_cws_b, ext_cws_b = [], []
+                row0, ext0 = 3, 0
+                for t in self.tables:
+                    base_cws_b.append(base_vals[row0 : row0 + t.base_width])
+                    ext_cws_b.append(ext_vals[ext0 : ext0 + t.num_ext_columns])
+                    row0 += t.base_width
+                    ext0 += t.num_ext_columns
+                acc = self._quotient_combination(
+                    acc, base_cws_b, ext_cws_b, challenges_arr, terminals_arr,
+                    [zinv_b[t.height] for t in self.tables], w_pairs[q0:],
+                    ratios[q0:], starts[q0:], slots, uds,
+                )
+                comb[:, b] = acc
+                del base_vals, ext_vals, base_cws_b, ext_cws_b, zinv_b, acc
         return comb.reshape(N, 3)
 
     def _combination_pipeline(self, rand_cw, base_cws, ext_cws,
@@ -996,7 +997,8 @@ class BrainfuckStark:
         )
         w0 = u64_to_tensor(weights_h[0], dev)
         w_pairs = u64_to_tensor(weights_h[1:], dev).reshape(-1, 2, 3)
-        zinv = self._zerofier_inverses()
+        with span("zerofiers"):
+            zinv = self._zerofier_inverses()
 
         acc = xf.mul(w0[None, :].expand(N, 3), rand_cw)
         # the base and extension groups as the LDE tensors' column views;
@@ -1028,6 +1030,15 @@ class BrainfuckStark:
         output_matrix: np.ndarray,
         proof_stream: Optional[ProofStream] = None,
     ) -> bytes:
+        with SpanRecorder(self.device, self.config.seed) as timer:
+            return self._prove(
+                timer, processor_matrix, memory_matrix, instruction_matrix,
+                input_matrix, output_matrix, proof_stream)
+
+    def _prove(self, timer, processor_matrix, memory_matrix,
+               instruction_matrix, input_matrix, output_matrix, proof_stream):
+        """`prove`'s body; `timer` is the prove's SpanRecorder, whose stages
+        are the marks of `last_metrics["stages_s"]`."""
         cfg = self.config
         dev = self.device
         mesh = self.mesh
@@ -1042,62 +1053,73 @@ class BrainfuckStark:
         rng = Rng(seed)
         fri = self.fri
         N = fri.domain.length
-        timer = StageTimer(dev)
-        _mark = timer.mark
         use_stream = self.use_stream
+        native = self.codec.name == "native"
+        device_commit = self._device_commit()
+        sharded_commit = self._sharded_commit()
         self.last_commit_resumes = []
-        launches0 = (B.LAUNCHES, kn.LAUNCHES_SUBNTT, kn.LAUNCHES_TWIDDLE,
-                     fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD,
-                     fk.LAUNCHES_ACC, qk.LAUNCHES_QUOTIENT)
+        stage, begin, end = timer.stage, timer.begin, timer.end
+        # the stages, in order: the commitments' label says where the tree
+        # is built
+        tree_at = (" (streamed)" if use_stream
+                   else " (device)" if device_commit else "")
+        comb_at = " (device)" if device_commit else ""
 
+        def fri_stage():
+            stage("fri.prove")
+            # steps 15-16: the openings, up to FRI's own call
+            begin("open")
+
+        stage("stage_a (base coeffs)" if use_stream else "stage_a (base LDE)")
         # 1. populate and pad (ref brainfuck_stark.py:139-150)
         assert len(processor_matrix) + len(self.program) == len(instruction_matrix)
         matrices = [
             processor_matrix, instruction_matrix, memory_matrix,
             input_matrix, output_matrix,
         ]
-        for t, m in zip(self.tables, matrices):
-            t.matrix = np.asarray(m, dtype=U64).reshape(-1, t.base_width)
-            if len(t.matrix) > 0:
-                t.pad()
+        with span("pad"):
+            for t, m in zip(self.tables, matrices):
+                t.matrix = np.asarray(m, dtype=U64).reshape(-1, t.base_width)
+                if len(t.matrix) > 0:
+                    t.pad()
 
         if proof_stream is None:
             proof_stream = self.codec.make_stream()
-        mats = tuple(u64_to_tensor(t.matrix, dev) for t in self.tables)
 
         # 2-3. randomizer polynomial (BLAKE2b counter PRF, drawn where it is
         # consumed) + base LDE (ref :164-176)
         rand_count = (self.max_degree + 1) * 3
-        randomizer_coeffs = prf_field_words(
-            salt_key_words(rng.bytes(16), dev), rand_count
-        )
-        base_rands = tuple(
-            u64_to_tensor(
-                rng.base_elements((t.base_width, t.num_randomizers)), dev
+        with span("randomizer"):
+            randomizer_coeffs = prf_field_words(
+                salt_key_words(rng.bytes(16), dev), rand_count
             )
-            if t.num_randomizers > 0 and t.height > 0
-            else None
-            for t in self.tables
-        )
-        packs = self._lde_packs()
-        native = self.codec.name == "native"
-        device_commit = self._device_commit()
-        sharded_commit = self._sharded_commit()
-        if use_stream:
-            # streamed mode: only coefficient groups persist (see
-            # protocol/stream.py); the transcript equals the resident one
-            splan = self._stream_plan()
-            base_groups = self._stage_base_coeffs(
-                mats, randomizer_coeffs, base_rands, packs
-            )
-            del randomizer_coeffs
-            _mark("stage_a (base coeffs)")
-        else:
-            randomizer_codeword, base_codewords = self._stage_base_lde(
-                mats, randomizer_coeffs, base_rands, packs
-            )
-            _mark("stage_a (base LDE)")
+            base_rands_h = [
+                rng.base_elements((t.base_width, t.num_randomizers))
+                if t.num_randomizers > 0 and t.height > 0
+                else None
+                for t in self.tables
+            ]
+        with span("upload"):
+            mats = tuple(u64_to_tensor(t.matrix, dev) for t in self.tables)
+            base_rands = tuple(None if r is None else u64_to_tensor(r, dev)
+                               for r in base_rands_h)
+        with span("tables"):
+            packs = self._lde_packs()
+            splan = self._stream_plan() if use_stream else None
+        with span("lde"):
+            if use_stream:
+                # streamed mode: only coefficient groups persist (see
+                # protocol/stream.py); the transcript equals the resident one
+                base_groups = self._stage_base_coeffs(
+                    mats, randomizer_coeffs, base_rands, packs
+                )
+                del randomizer_coeffs
+            else:
+                randomizer_codeword, base_codewords = self._stage_base_lde(
+                    mats, randomizer_coeffs, base_rands, packs
+                )
 
+        stage("base merkle" + tree_at)
         # 4. salted commitment to the zipped base codewords (ref :178-180)
         base_salt_key = rng.bytes(16)
         num_base_cols = sum(t.base_width for t in self.tables)
@@ -1107,7 +1129,6 @@ class BrainfuckStark:
                 base_groups, base_salt_key, splan, "base"
             )
             base_row = base_tree.row_at
-            _mark("base merkle (streamed)")
         else:
             zipped_base = torch.cat(
                 [randomizer_codeword] + [cw.T for cw in base_codewords], dim=1
@@ -1115,7 +1136,7 @@ class BrainfuckStark:
             base_tree, base_row = self._salted_commit(
                 zipped_base, salt_key_words(base_salt_key, dev), base_widths
             )
-            _mark("base merkle (device)" if device_commit else "base merkle")
+        stage("extend (device scan)")
         base_leaf_cache: Dict[int, tuple] = {}
 
         def base_leaf_obj(idx):
@@ -1142,16 +1163,19 @@ class BrainfuckStark:
             else None
             for t in self.tables
         )
-        challenges_arr = u64_to_tensor(challenges_h, dev)
-        initials_arr = u64_to_tensor(initials_h, dev)
-        xcols, terms_dev = self._device_extend(mats, challenges_arr, initials_arr)
-        for t, terms in zip(self.tables, terms_dev):
-            terms = tensor_to_u64(terms)
-            t.terminals = {
-                n: tuple(int(v) for v in terms[j])
-                for j, n in enumerate(t.terminal_names)
-            }
-        _mark("extend (device scan)")
+        with span("scan"):
+            challenges_arr = u64_to_tensor(challenges_h, dev)
+            initials_arr = u64_to_tensor(initials_h, dev)
+            xcols, terms_dev = self._device_extend(mats, challenges_arr,
+                                                   initials_arr)
+        with span("terminals"):
+            for t, terms in zip(self.tables, terms_dev):
+                terms = tensor_to_u64(terms)
+                t.terminals = {
+                    n: tuple(int(v) for v in terms[j])
+                    for j, n in enumerate(t.terminal_names)
+                }
+        stage("stage_b (ext coeffs)" if use_stream else "stage_b (ext LDE)")
         terminals_h = self._terminals_list()
 
         # 8. extension LDE (ref :194-199)
@@ -1160,12 +1184,11 @@ class BrainfuckStark:
             # the trace matrices and the extension columns were consumed by
             # stage_a, the scan and stage_b: only the groups persist
             del xcols, mats
-            _mark("stage_b (ext coeffs)")
         else:
             ext_codewords = self._stage_ext_lde(xcols, ext_rands, packs)
             del xcols
-            _mark("stage_b (ext LDE)")
 
+        stage("ext merkle" + tree_at)
         ext_salt_key = rng.bytes(16)
         num_ext_cols = sum(t.num_ext_columns for t in self.tables)
         ext_widths = [3] * num_ext_cols
@@ -1174,7 +1197,6 @@ class BrainfuckStark:
                 ext_groups, ext_salt_key, splan, "ext"
             )
             ext_row = ext_tree.row_at
-            _mark("ext merkle (streamed)")
         else:
             zipped_ext = torch.cat(
                 [cw.movedim(0, 1).reshape(cw.shape[1], -1)
@@ -1184,7 +1206,7 @@ class BrainfuckStark:
             ext_tree, ext_row = self._salted_commit(
                 zipped_ext, salt_key_words(ext_salt_key, dev), ext_widths
             )
-            _mark("ext merkle (device)" if device_commit else "ext merkle")
+        stage("stage_c (quotients+combination)")
         ext_leaf_cache: Dict[int, tuple] = {}
 
         def ext_leaf_obj(idx):
@@ -1203,6 +1225,7 @@ class BrainfuckStark:
                 base_codewords, ext_codewords, challenges_h, terminals_h
             )
 
+        begin("symbolic")
         # 9. quotient degree bounds (host, symbolic; ref :210-218)
         quotient_degree_bounds = []
         for t in self.tables:
@@ -1223,8 +1246,10 @@ class BrainfuckStark:
             1 + 2 * (num_base + num_ext + num_quot),
             proof_stream.prover_fiat_shamir(),
         )
+        end()
 
         # 12. quotients + nonlinear combination (ref :204-218, :240-298)
+        begin("combination")
         all_shift_bounds = (
             self._base_degree_bounds() + self._ext_degree_bounds()
             + quotient_degree_bounds
@@ -1242,8 +1267,9 @@ class BrainfuckStark:
                 randomizer_codeword, base_codewords, ext_codewords,
                 challenges_arr, terminals_arr, weights_h, shifts, offset_pows,
             )
-        _mark("stage_c (quotients+combination)")
+        end()
 
+        stage("combination merkle" + comb_at)
         # 13. commit to the combination codeword (ref :301-302)
         if mesh is not None and not sharded_commit:
             combination = mesh.all_gather(combination)
@@ -1253,9 +1279,8 @@ class BrainfuckStark:
                 mesh=mesh if sharded_commit else None,
             )
             comb_row = combination_tree.row_at
-            _mark("combination merkle (device)")
         else:
-            combination = combination.cpu()
+            combination = to_host(combination)
             comb_host = tensor_to_u64(combination)
             if native:
                 combination_tree = Merkle.from_buffer(
@@ -1267,7 +1292,10 @@ class BrainfuckStark:
                     for row in comb_host
                 ])
             comb_row = lambda idx: comb_host[idx]  # noqa: E731
-            _mark("combination merkle")
+        if use_stream:
+            stage("reopen (streamed 2nd pass)")
+        else:
+            fri_stage()
         comb_leaf_cache: Dict[int, tuple] = {}
 
         def comb_leaf_obj(idx):
@@ -1296,17 +1324,21 @@ class BrainfuckStark:
             if use_stream:
                 # second streaming pass: evaluate the classes again and
                 # gather the opened positions
-                base_tree.resolve(open_idx, reopen_rows(base_groups, splan))
-                ext_tree.resolve(open_idx, reopen_rows(ext_groups, splan))
+                with span("base"):
+                    base_tree.resolve(open_idx,
+                                      reopen_rows(base_groups, splan))
+                with span("ext"):
+                    ext_tree.resolve(open_idx, reopen_rows(ext_groups, splan))
                 # the groups and the zerofier-inverse store had their last
                 # use above: free them before FRI runs
                 del base_groups, ext_groups
                 self._zs_cache = None
-                _mark("reopen (streamed 2nd pass)")
+                fri_stage()
             batch = [(base_tree, open_idx), (ext_tree, open_idx)]
             if device_commit:
                 batch.append((combination_tree, indices))
-            prefetch_trees(batch)
+            with span("prefetch"):
+                prefetch_trees(batch)
         for index in indices:
             for distance in [0] + unit_distances:
                 idx = (index + distance) % N
@@ -1321,20 +1353,22 @@ class BrainfuckStark:
         for index in indices:
             proof_stream.push(comb_leaf_obj(index))
             proof_stream.push(combination_tree.open(index))
+        end()
 
         # 17. FRI (ref :336). Under the reference codec round 0 opens the
         # very leaf objects that step 16 pushed (pickle memo references) and
         # builds its tree again from them
-        self.fri.prove(
-            combination, proof_stream, on_device=device_commit,
-            tree0=combination_tree if native else None,
-            sharded=sharded_commit,
-            leaf_objs0=None if native else [comb_leaf_obj(i) for i in range(N)],
-        )
-        _mark("fri.prove")
-
+        with span("fri"):
+            self.fri.prove(
+                combination, proof_stream, on_device=device_commit,
+                tree0=combination_tree if native else None,
+                sharded=sharded_commit,
+                leaf_objs0=(None if native
+                            else [comb_leaf_obj(i) for i in range(N)]),
+            )
+        stage("serialize")
         proof = proof_stream.serialize()
-        _mark("serialize")
+        timer.finish()
         T = self.tables[0].height
 
         def per_s(count, *substrings):
@@ -1358,6 +1392,7 @@ class BrainfuckStark:
         hash_leaves = 3 * N + sum(
             N >> r for r in range(1, self.fri.num_rounds())
         )
+        totals = timer.record.totals()
         self.last_metrics = timer.report(
             fri_domain=N,
             trace_height=T,
@@ -1369,7 +1404,8 @@ class BrainfuckStark:
             hash_leaves_per_s=per_s(hash_leaves, "merkle", "fri.prove"),
             extend_rows_per_s=per_s(
                 sum(t.height for t in self.tables), "extend"),
-            fri_round_s=self.fri.last_round_s,
+            fri_round_s=[round(s.seconds, 4) for s in timer.record.spans
+                         if s.name == "round"],
             device=str(dev),
             mesh=(None if mesh is None
                   else {**mesh.describe(), **mesh.stats_report(),
@@ -1390,13 +1426,12 @@ class BrainfuckStark:
                 else "host-cpp" if native and N >= NATIVE_MIN_LEAVES
                 else "host-hashlib"
             ),
-            blake2b_launches=B.LAUNCHES - launches0[0],
-            subntt_launches=kn.LAUNCHES_SUBNTT - launches0[1],
-            twiddle_outer_launches=kn.LAUNCHES_TWIDDLE - launches0[2],
-            gl_elementwise_launches=fk.LAUNCHES_ELEMENTWISE - launches0[3],
-            xf_elementwise_launches=fk.LAUNCHES_XFIELD - launches0[4],
-            acc_group_launches=fk.LAUNCHES_ACC - launches0[5],
-            quotient_launches=qk.LAUNCHES_QUOTIENT - launches0[6],
+            **{key: totals.get(counter, 0) for key, counter in (
+                ("blake2b_launches", "b1"), ("subntt_launches", "b2"),
+                ("twiddle_outer_launches", "b3"),
+                ("gl_elementwise_launches", "f1"),
+                ("xf_elementwise_launches", "f2"),
+                ("acc_group_launches", "f3"), ("quotient_launches", "f4"))},
         )
         return proof
 

@@ -63,6 +63,7 @@ from ..ops import blake2b as B2
 from ..ops import field as f
 from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
+from ..utils.metrics import span, transfer
 from .device_merkle import (
     _HOST_CUT,
     DeviceMerkle,
@@ -223,8 +224,8 @@ class StreamedMerkle(DeviceMerkle):
             sibs = [s for s in sibs if (lvl, s) not in self._node_cache]
             per_level.append(sibs)
             if sibs:
-                lidx = torch.tensor(sibs, dtype=torch.int64,
-                                    device=level.device)
+                lidx = transfer(torch.tensor(sibs, dtype=torch.int64),
+                                level.device)
                 gathered.append(level.index_select(0, lidx))
         return ([], per_level), gathered, None
 
@@ -286,28 +287,29 @@ def streamed_commit(groups, salt_key: Optional[bytes], plan):
     salted = salt_key is not None
     G = group_size_for(B, S, plan.get("group"))
     levels = (G - 1).bit_length()
-    if salted:
-        key = salt_key_words(salt_key, dev)
-        # the leaf indices of a group at b0 = 0, class-major
-        gidx = (torch.arange(S, dtype=torch.int64, device=dev)[None, :] * B
-                + torch.arange(G, dtype=torch.int64, device=dev)[:, None])
-        gidx = gidx.reshape(G * S)
-    wbs = _class_roots(plan, dev)
-    acc = StreamAccumulator()
-    for b0 in range(0, B, G):
-        vals = group_values(groups, wbs[b0 : b0 + G], scale_len,
-                            plan["pack_S"], S)
-        salts = (
-            salt_words_device(key, G * S, indices=gidx + b0).view(G, S, 3)
-            if salted else None
-        )
-        digests = leaf_digests(vals.transpose(1, 2), salts).view(G, S, 8)
-        del vals, salts
-        for _ in range(levels):
-            pairs = digests.view(-1, 2, S, 8)
-            digests = B2.merkle_parents_pair(pairs[:, 0], pairs[:, 1])
-        acc.add(digests[0], level=levels)
-    lvl, top = acc.finish()
+    with span("commit"):
+        if salted:
+            key = salt_key_words(salt_key, dev)
+            # the leaf indices of a group at b0 = 0, class-major
+            gidx = (torch.arange(S, dtype=torch.int64, device=dev)[None, :] * B
+                    + torch.arange(G, dtype=torch.int64, device=dev)[:, None])
+            gidx = gidx.reshape(G * S)
+        wbs = _class_roots(plan, dev)
+        acc = StreamAccumulator()
+        for b0 in range(0, B, G):
+            vals = group_values(groups, wbs[b0 : b0 + G], scale_len,
+                                plan["pack_S"], S)
+            salts = (
+                salt_words_device(key, G * S, indices=gidx + b0).view(G, S, 3)
+                if salted else None
+            )
+            digests = leaf_digests(vals.transpose(1, 2), salts).view(G, S, 8)
+            del vals, salts
+            for _ in range(levels):
+                pairs = digests.view(-1, 2, S, 8)
+                digests = B2.merkle_parents_pair(pairs[:, 0], pairs[:, 1])
+            acc.add(digests[0], level=levels)
+        lvl, top = acc.finish()
     assert lvl == (B - 1).bit_length()
     if salted:
         return StreamedSaltedMerkle(N, B, top, salt_key)
@@ -326,7 +328,7 @@ def reopen_rows(groups, plan):
     wbs = _class_roots(plan, dev)
 
     def rows_for_positions(positions):
-        pos = torch.tensor(list(positions), dtype=torch.int64, device=dev)
+        pos = transfer(torch.tensor(list(positions), dtype=torch.int64), dev)
         pieces = []
         for b0 in range(0, B, G):
             vals = group_values(groups, wbs[b0 : b0 + G], scale_len,

@@ -13,7 +13,7 @@ u64 words (tolerance 0). On the CPU, with inputs made by numpy from a seed:
     fold every round in parallel, or none, it folds the same;
   - `Fri.commit` on the CPU gives the JAX package's roots and transcript
     with its device-tree rounds on the plain fold and its host rounds on
-    the native one, one `fri_round_s` entry a fold;
+    the native one, one span `round` (an entry of `fri_round_s`) a fold;
   - seeded whole proves equal the JAX package's `prove(xp=np)` bytes, with
     every host round on the native fold: all rounds host, a device round
     then the host tail, and the reference codec;
@@ -45,6 +45,7 @@ from stark_brainfuck_tpu_torch.ops import fri_kernels as fk
 from stark_brainfuck_tpu_torch.ops import xfield as txf
 from stark_brainfuck_tpu_torch.protocol import fri as tfri
 from stark_brainfuck_tpu_torch.protocol.channel import ProofStream
+from stark_brainfuck_tpu_torch.utils.metrics import SpanRecorder
 
 torch.set_num_threads(1)
 
@@ -216,7 +217,8 @@ def test_commit_roots_and_round_times_with_the_native_tail(monkeypatch,
     calls = _Calls(monkeypatch)
     fri = tfri.Fri(tf.GENERATOR, omega, n, 4, 8, device_commit_min=1024)
     ps = ProofStream()
-    lengths, objs, trees = fri.commit(T(cw), ps, on_device=on_device)
+    with SpanRecorder("cpu") as recorder:
+        lengths, objs, trees = fri.commit(T(cw), ps, on_device=on_device)
     jf_ = jfri.Fri(jf.GENERATOR, omega, n, 4, 8)
     jps = JProofStream()
     jcws, jobjs, jtrees = jf_.commit(cw, jps)
@@ -224,7 +226,8 @@ def test_commit_roots_and_round_times_with_the_native_tail(monkeypatch,
     assert lengths == [c.shape[0] for c in jcws]
     assert ps.serialize() == jps.serialize()
     folds = fri.num_rounds() - 1
-    assert len(fri.last_round_s) == folds
+    rounds = [s.path for s in recorder.record.spans if s.name == "round"]
+    assert rounds == ["prove/round"] * folds
     device = [n >> r for r in range(folds) if on_device and n >> r >= 1024]
     assert calls.calls["fold_plain"] == device
     assert calls.calls["fold_host"] == [n >> r for r in range(len(device),
