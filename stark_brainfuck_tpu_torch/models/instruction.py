@@ -8,15 +8,12 @@ evaluation argument with address-deduplication (ref
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import scan as sc
 from ..ops import xfield as xf
 from .processor import instruction_zerofier
 from .table import Table
-
-U64 = np.uint64
 
 ADDRESS, CURRENT_INSTRUCTION, NEXT_INSTRUCTION = range(3)
 PERMUTATION, EVALUATION = 3, 4
@@ -43,14 +40,11 @@ class InstructionTable(Table):
     base_width = 3
     full_width = 5
 
-    def pad(self):
-        """Repeat last address with ci = ni = 0 (ref :19-25)."""
-        m = list(np.asarray(self.matrix))
-        while len(m) & (len(m) - 1) != 0:
-            last = m[-1]
-            m.append(np.array([last[ADDRESS], 0, 0], dtype=U64))
-        self.matrix = np.array(m, dtype=U64).reshape(-1, 3)
-        self.height = len(self.matrix)
+    def pad_rows(self, block, last):
+        """Padding rows: the last address repeated, ci = ni = 0
+        (ref :19-25)."""
+        block[:, ADDRESS] = last[ADDRESS]
+        block[:, [CURRENT_INSTRUCTION, NEXT_INSTRUCTION]] = 0
 
     def base_transition_constraints(self, A, v):
         return _base_transition(A, v)

@@ -10,9 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import xfield as xf
-from .table import Table, derive_omicron, roundup_npo2
-
-U64 = np.uint64
+from .table import Table, derive_omicron
 
 COLUMN = 0
 EVALUATION = 1
@@ -31,16 +29,12 @@ class IOTable(Table):
     def pad(self):
         """Zero-pad to a power of two; length is re-pinned to the number of
         real symbols first (ref io_table.py:16-20)."""
-        m = np.asarray(self.matrix).reshape(-1, 1)
-        self.length = m.shape[0]
-        pad_to = roundup_npo2(m.shape[0])
-        if pad_to > m.shape[0]:
-            m = np.concatenate(
-                [m, np.zeros((pad_to - m.shape[0], 1), dtype=U64)], axis=0
-            )
-        self.matrix = m
-        self.height = m.shape[0]
+        self.length = np.size(self.matrix)
+        super().pad()
         self.omicron = derive_omicron(self.height)
+
+    def pad_rows(self, block, last):
+        block[:] = 0
 
     def base_transition_constraints(self, A, v):
         return []

@@ -7,15 +7,11 @@ matrix derivation itself lives in `vm.machine.derive_memory_matrix`.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops import field as f
 from ..ops import scan as sc
 from ..ops import xfield as xf
-from .table import Table
-
-U64 = np.uint64
+from .table import Table, clock_after
 
 CLK, MP, MV, DUMMY = range(4)
 PERMUTATION = 4
@@ -46,18 +42,12 @@ class MemoryTable(Table):
     base_width = 4
     full_width = 5
 
-    def pad(self):
-        """Repeat last (mp, mv) with incrementing clk and dummy=1
-        (ref :40-44)."""
-        m = list(np.asarray(self.matrix))
-        while len(m) & (len(m) - 1) != 0:
-            last = m[-1]
-            row = np.array(
-                [f.h_add(int(last[CLK]), 1), last[MP], last[MV], 1], dtype=U64
-            )
-            m.append(row)
-        self.matrix = np.array(m, dtype=U64).reshape(-1, 4)
-        self.height = len(self.matrix)
+    def pad_rows(self, block, last):
+        """Padding rows: incrementing clk, the last (mp, mv) repeated,
+        dummy = 1 (ref :40-44)."""
+        block[:, CLK] = clock_after(last[CLK], len(block))
+        block[:, [MP, MV]] = last[[MP, MV]]
+        block[:, DUMMY] = 1
 
     def base_transition_constraints(self, A, v):
         return _base_transition(A, v)

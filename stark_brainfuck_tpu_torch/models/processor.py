@@ -8,15 +8,11 @@ evaluations); the implementation is column tensors + parallel scans.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops import field as f
 from ..ops import scan as sc
 from ..ops import xfield as xf
-from .table import Table
-
-U64 = np.uint64
+from .table import Table, clock_after
 
 # base column indices (ref processor_table.py:6-12)
 CLK, IP, CI, NI, MP, MV, MVI = range(7)
@@ -139,21 +135,12 @@ class ProcessorTable(Table):
     base_width = 7
     full_width = 11
 
-    def pad(self):
-        """Append rows with incrementing clk, frozen registers, ci=ni=0
+    def pad_rows(self, block, last):
+        """Padding rows: incrementing clk, frozen registers, ci = ni = 0
         (ref :24-35)."""
-        m = list(np.asarray(self.matrix))
-        while len(m) & (len(m) - 1) != 0:
-            last = m[-1]
-            row = np.zeros(7, dtype=U64)
-            row[CLK] = f.h_add(int(last[CLK]), 1)
-            row[IP] = last[IP]
-            row[MP] = last[MP]
-            row[MV] = last[MV]
-            row[MVI] = last[MVI]
-            m.append(row)
-        self.matrix = np.array(m, dtype=U64).reshape(-1, 7)
-        self.height = len(self.matrix)
+        block[:, CLK] = clock_after(last[CLK], len(block))
+        block[:, [IP, MP, MV, MVI]] = last[[IP, MP, MV, MVI]]
+        block[:, [CI, NI]] = 0
 
     # -- constraints --------------------------------------------------------
 

@@ -32,6 +32,15 @@ def roundup_npo2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def clock_after(last, n: int) -> np.ndarray:
+    """last + 1, ..., last + n mod p as a u64 column. For last < p and
+    n < 2^32 no sum reaches 2^64, so one conditional subtraction of p is the
+    whole reduction."""
+    clk = np.arange(1, n + 1, dtype=np.uint64) + np.uint64(last)
+    np.subtract(clk, np.uint64(f.P), out=clk, where=clk >= np.uint64(f.P))
+    return clk
+
+
 def derive_omicron(height: int) -> int:
     """Generator of the order-`height` subgroup; 1 for heights 0/1 (matches
     ref table.py:30-35, where squaring past order 1 also lands on 1)."""
@@ -86,6 +95,20 @@ class Table:
         raise NotImplementedError
 
     def pad(self):
+        """Grow the matrix to the next power of two in one allocation: the
+        rows it has, then the padding block that `pad_rows` fills from the
+        last row."""
+        m = np.asarray(self.matrix, dtype=np.uint64).reshape(-1, self.base_width)
+        rows = m.shape[0]
+        self.height = roundup_npo2(rows)
+        self.matrix = np.empty((self.height, self.base_width), dtype=np.uint64)
+        self.matrix[:rows] = m
+        if self.height > rows:
+            self.pad_rows(self.matrix[rows:], m[-1])
+
+    def pad_rows(self, block: np.ndarray, last: np.ndarray):
+        """Write the padding rows `block` (n, base_width) that follow the
+        row `last`, column by column."""
         raise NotImplementedError
 
     terminal_names: tuple = ()

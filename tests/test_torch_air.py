@@ -65,6 +65,50 @@ def _make(name, program, tr):
     return tables
 
 
+def _counter_rows(k, key):
+    """One table of the benchmark traffic's two-level counter program at
+    outer count k; k = 239 and 317 are the ends of its range, where cycles
+    plus program length lie in [3/4 · 2^15, 2^15)."""
+    tr = TVM.simulate(TVM.compile("+" * k + "[->" + "+" * 32 + "[-]<]"), "")
+    return tr[key]
+
+
+def _random_rows(name, rows, last_clk=None):
+    width = TABLES[name][1].base_width
+    m = np.random.default_rng(rows).integers(0, P, (rows, width), dtype=np.uint64)
+    if last_clk is not None:
+        m[-1, 0] = last_clk  # clk is column 0 of the processor and memory
+    return m
+
+
+PAD_CASES = [
+    (name, rows, None)
+    for name in ("processor", "instruction", "memory")
+    for rows in (1, 2, 3, 1023, 1024, 1025, "counter-239", "counter-317")
+] + [("processor", 5, P - 3), ("memory", 13, P - 3)]
+
+
+@pytest.mark.parametrize("name,rows,last_clk", PAD_CASES)
+def test_pad_matches_jax(name, rows, last_clk):
+    if isinstance(rows, str):
+        m = _counter_rows(int(rows.split("-")[1]), TABLES[name][2])
+    else:
+        m = _random_rows(name, rows, last_clk)
+    jcls, tcls, _ = TABLES[name]
+    jt, tt = jcls(len(m), 1), tcls(len(m), 1)
+    jt.matrix, tt.matrix = m.copy(), m.copy()
+    jt.pad()
+    tt.pad()
+    want = np.asarray(jt.matrix)
+    assert tt.matrix.shape == want.shape
+    assert tt.matrix.dtype == np.uint64
+    assert tt.matrix.flags["C_CONTIGUOUS"]
+    assert tt.height == jt.height == want.shape[0]
+    assert np.array_equal(tt.matrix, want)
+    if last_clk is not None:
+        assert 0 in tt.matrix[:, 0]  # the clock wrapped past p - 1
+
+
 def _xvals(rng, n):
     return [tuple(int(v) for v in rng.integers(0, P, 3, dtype=np.uint64))
             for _ in range(n)]
