@@ -4,8 +4,10 @@
 (`workloads`), the configurations and the metrics. A cell names a
 configuration and a traffic mix; each has a file of its own here,
 `configs/<name>.json` and `traffic/<name>.json`, and each metric a reader,
-`metrics/<name>.py`. A configuration, a mix, a cell or a metric is added by
-adding its file and its entry: nothing here names one.
+`metrics/<name>.py`. A cell may also have `workloads/<cell>.json`, with
+the job counts it sets apart from its configuration's. A configuration, a
+mix, a cell or a metric is added by adding its file and its entry: nothing
+here names one.
 """
 
 from __future__ import annotations
@@ -42,6 +44,21 @@ def load_config(name: str, here: str = HERE) -> dict:
 
 def load_traffic(name: str, here: str = HERE) -> dict:
     return _load_json("traffic", name, here)
+
+
+# the judge's and the profiler's job counts: a cell's own file gives them
+# where it has one, else its configuration does, else 1
+JOB_COUNTS = ("reprove_jobs", "profile_jobs")
+
+
+def job_counts(cell: str, config: dict, here: str = HERE) -> Dict[str, int]:
+    """{"reprove_jobs", "profile_jobs"} of the cell `cell` run under the
+    configuration `config` (its parsed file)."""
+    path = os.path.join(here, "workloads", f"{cell}.json")
+    own = {}
+    if os.path.exists(path):
+        own = _load_json("workloads", cell, here)
+    return {k: int(own.get(k, config.get(k, 1))) for k in JOB_COUNTS}
 
 
 def reader(name: str, here: str = HERE) -> Callable:

@@ -31,14 +31,16 @@ BROKEN = {"num_randomizers": 0}
 
 
 def control_program(broken=None):
-    """A stand-in for the program's package: the reference's prover, with
+    """A stand-in for the program's package: the reference's prover (its
+    class path above the FRI domains its resident path holds), with
     `broken` overriding the configuration it is given."""
     from reference import bfstark as R
+    from reference.bfstark.protocol.classes import ClassStark
 
     broken = dict(BROKEN if broken is None else broken)
     return SimpleNamespace(
         VirtualMachine=R.VirtualMachine,
-        BrainfuckStark=R.BrainfuckStark,
+        BrainfuckStark=ClassStark,
         StarkConfig=lambda **kw: R.StarkConfig(**{**kw, **broken}),
     )
 

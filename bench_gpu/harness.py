@@ -116,6 +116,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     cell = cells.find_cell(bench, cell_name)
     config = cells.load_config(cell["config"], here)
     traffic = cells.load_traffic(cell["traffic"], here)
+    counts = cells.job_counts(cell_name, config, here)
     stark, heights = config["stark"], traffic.get("heights")
 
     import torch
@@ -157,7 +158,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     if trace and cuda:
         try:
             profiled, profile = _profiled(P, stream, stark, heights, device,
-                                          int(config.get("profile_jobs", 1)))
+                                          counts["profile_jobs"])
         except Exception:
             failed += 1
             traceback.print_exc(file=log)
@@ -180,11 +181,14 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
               "host_s": [round(j.host_s, 4) for j in jobs]}
     if cuda:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t_judge = time.perf_counter()
-    checks = judging.judge(jobs, stark, int(config.get("reprove_jobs", 1)),
-                           seed, device)
+    checks = judging.judge(jobs, stark, counts["reprove_jobs"], seed, device)
     window["profile_s"] = t_judge - t_profile
     window["judge_s"] = time.perf_counter() - t_judge
+    # the reference's peak, apart from the window's
+    window["judge_peak_bytes"] = (int(torch.cuda.max_memory_allocated())
+                                  if cuda else 0)
     result = {
         "correct": (failed == 0 and bool(jobs)
                     and all(c["ok"] for c in checks.values())),

@@ -12,7 +12,8 @@ compared byte by byte. Every layer is in the bytes: the trace, the salted
 base and extension commitments (LDE and BLAKE2b), the extension scan's
 terminals, the quotients and the combination behind the combination root,
 the openings of all three trees, and every FRI round down to the last
-codeword.
+codeword. Above FRI 2^24, which its resident path cannot hold on an 80 GB
+card, the reference proves in classes of 2^21 points.
 
 The jobs to prove again, after the window, are the one with the most
 cycles and others drawn from the run's seed.
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from reference import bfstark as R
+from reference.bfstark.protocol import classes as RC
 
 # the numbers compared, each with its limit: (name, limit, "max" or "min")
 LIMITS = (
@@ -43,14 +45,16 @@ def bytes_differing(a: bytes, b: bytes) -> int:
 
 
 def reference_proof(source: str, input_data: str, seed: int, stark: dict,
-                    device) -> bytes:
-    """The reference's proof of one job."""
+                    device, resident_max: int = RC.RESIDENT_MAX,
+                    classes: Optional[int] = None) -> bytes:
+    """The reference's proof of one job: on its resident path up to FRI
+    domains of `resident_max`, above in `classes` classes."""
     program = R.VirtualMachine.compile(source)
     trace = R.VirtualMachine.simulate(program, input_data)
-    prover = R.BrainfuckStark(
+    prover = RC.ClassStark(
         trace["processor"].shape[0], trace["memory"].shape[0], program,
         input_data, trace["output_data"], R.StarkConfig(seed=seed, **stark),
-        device=device,
+        device=device, resident_max=resident_max, classes=classes,
     )
     return prover.prove(trace["processor"], trace["memory"],
                         trace["instruction"], trace["input"], trace["output"])

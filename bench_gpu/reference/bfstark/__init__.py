@@ -9,6 +9,10 @@ int64 torch programs on whatever device the caller gives, Merkle trees
 below `device_commit_min` on hashlib, and the trace is recorded by the
 python recorder. No kernel, compiled library or native code is reached.
 
+Above the FRI domains that path holds on one card (`RESIDENT_MAX`), the
+same prover proves in classes (`protocol/classes.py`, `ClassStark`): this
+package's own code, not a copy of the program's streamed prover.
+
 A seeded proof of the Brainfuck STARK is a determined byte string, the same
 on every path of the port (resident or streamed, any NTT route, any class
 count) and the same as the JAX package's: the benchmark holds each proof
