@@ -30,6 +30,11 @@ line each; any failure raises and exits non-zero:
      contiguous `subntt` form; then ntt_full: the composed `ntt_kernel`
      against the u64 network at (19, 2^21) and (27, 2^21), with both times
      and the transform's own bound (two passes over the block of rows);
+     cell_ntt: `ntt_kernel` against the u64 network and against the plain
+     radix-2 network, exactly, at the batches of the benchmark's cells:
+     the class transforms (8 x 19 and 8 x 27 rows at 2^21, 19 and 27 at
+     2^21, 8 x 27 at 2^19) and the tables' INTTs (7 and 12 rows at 2^15,
+     2^16, 2^20, 2^21), with both times and the transform's bound;
      field_kernels: the field layer's kernels (csrc/field.cu) against their
      plain torch versions, exactly, each launched once and counted: F1
      (add, sub, mul) on two 2^21-word codewords, at the u64 network's
@@ -74,8 +79,10 @@ line each; any failure raises and exits non-zero:
      `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
      default backend's;
   6. full-size prove: a counter program of 2^15 cycles (FRI domain 2^21,
-     the largest resident one) on the default NTT path (full_prove) and
-     with `ntt_backend="mxu"` (full_prove_mxu): a warm-up prove and verify
+     the largest resident one) on the default NTT path (full_prove: on the
+     card the four-step transform, B2/B3, for the LDE's forward NTTs and
+     the tables' INTTs) and on the u64 network (`ntt_backend="u64"`,
+     full_prove_u64): a warm-up prove and verify
      each, then two timed proves each, in turns, every one with its kernel
      launch counts (B1, B2, B3 and F1-F5; F1-F3 above 0, F4 exactly once
      a quotient evaluation on every prove of the card, after one prologue:
@@ -93,7 +100,8 @@ line each; any failure raises and exits non-zero:
      more);
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
      stream_bytes: the N=16384 program with `stream_min=1,
-     stream_classes=4` on cuda and on cpu, on both NTT paths, every proof
+     stream_classes=4` on cuda and on cpu, under "u64" and "auto" (the
+     four-step transform on the card, the network on the CPU), every proof
      equal to the resident one of step 5; stream_checkpoint: the same with
      a `checkpoint_dir`, whose second prove resumes both commit stages to
      the same bytes; stream_kernels: B1 against its plain version at the
@@ -110,9 +118,10 @@ line each; any failure raises and exits non-zero:
      one-class evaluations, all exactly; stream_prove: a counter of 2^16
      cycles (FRI 2^22, which the default `stream_min` sends down the
      streamed path) proved resident (`stream_min` = 2^23) and streamed with
-     32 (G = 8) and with 2 classes (G = 2), each on both NTT paths, all
+     32 (G = 8) and with 2 classes (G = 2), each under "u64" and "auto", all
      bytes equal, B2/B3 launched twice and once a class transform on the
-     mxu path (4B/G + 2B transforms), B1 exactly as often as the resident
+     four-step path (4B/G + 2B transforms) and as the tables' INTTs give
+     (`intt_launches`), none on the u64 network, B1 exactly as often as the resident
      prove's count gives (`streamed_b1`), with launch counts, the group,
      the merkle and reopen times, stage times and peak memory per prove
      beside the ungrouped prove's (`BASELINE_STREAM`), then the 32-class
@@ -121,8 +130,8 @@ line each; any failure raises and exits non-zero:
   8. the other paths of the main path's kernels: ref_codec_bytes: the
      N=16384 program with `codec="ref"` (host trees over pickled leaf
      objects; B1 still runs the salt and randomizer PRFs), the same bytes on
-     cuda on both NTT paths and on cpu, verified, B1 launched (and B2/B3
-     under mxu), not the native bytes; ref_codec_golden: a stark on the
+     cuda under "u64" and "auto" and on cpu, verified, B1 launched (and
+     B2/B3 under "auto"), not the native bytes; ref_codec_golden: a stark on the
      card accepts the reference prover's proof tests/vectors/
      ref_proof_plus4.bin and rejects it with a terminal changed;
      ref_codec_prove: a counter of about 2^10 cycles (FRI 2^16) under the
@@ -148,13 +157,13 @@ line each; any failure raises and exits non-zero:
      F4 on the block with the next row rolled across the ranks, each
      against its plain version, exactly (F4 on the rank's block of
      the combination); mesh_bytes: the N=16384
-     program with `mesh_shape` 2 and 4, on cuda and on cpu, default and mxu, every rank's proof equal to step
+     program with `mesh_shape` 2 and 4, on cuda and on cpu, "u64" and "auto", every rank's proof equal to step
      5's single-device proof, one verified; mesh_prove: the 2^15-cycle
-     counter (FRI 2^21) on 2 ranks, default and mxu, a warm-up and a timed
+     counter (FRI 2^21) on 2 ranks, "u64" and "auto", a warm-up and a timed
      prove each, bytes equal to step 6's, and per rank the stage times, the
      bytes and seconds spent in collectives, peak device memory and
      B1/B2/B3 launches (every rank must launch B1, and B2 and B3 under
-     mxu). A worker that fails makes the script exit non-zero;
+     "auto"). A worker that fails makes the script exit non-zero;
   10. the card's name and power limit, then the kernels line;
   11. last line: {"ok": true, "device": {...}}.
 
@@ -267,6 +276,18 @@ LOG2_FRI = 21
 # rows of the full-size prove's two forward LDE NTTs: 3 randomizer + 16
 # base columns, and 3 x 9 extension columns
 NTT_ROWS = {"base": 19, "ext": 27}
+
+# cell_ntt: (rows, log2 n) of the benchmark cells' class transforms (G = 8
+# classes of 19 base and 27 extension rows at S = 2^21 for FRI 2^26, one
+# class, S = 2^19 for FRI 2^24) and the rows and heights of the tables'
+# INTTs (the processor table's 7 base and 3 x 4 extension rows at the
+# cells' heights)
+CELL_FORWARD = ((8 * 19, 21), (8 * 27, 21), (19, 21), (27, 21), (8 * 27, 19))
+CELL_INVERSE = tuple((rows, logn) for logn in (15, 16, 20, 21)
+                     for rows in (7, 12))
+# rows of the plain radix-2 network at a time in cell_ntt (its int64
+# temporaries at 2^21 stay within a few GB)
+CELL_PLAIN_ROWS = 8
 
 # the streamed prove: 2^16 cycles, FRI 2^22 = the default stream_min, in the
 # default 32 classes (S = 2^17) and in 2 (S = 2^21)
@@ -664,6 +685,54 @@ def check_ntt_kernels():
              bound_ms=bound_ms)
         del v
     return b2, b3
+
+
+def cell_ntt(smi):
+    """`ntt_kernel` against the u64 network and against the plain radix-2
+    network (`ntt_with(..., plain=True)`, CELL_PLAIN_ROWS rows at a time)
+    at the batches the benchmark's cells run it at (CELL_FORWARD,
+    CELL_INVERSE), exactly, with CUDA-event times of the kernel and the u64
+    network and the transform's bound (the block of rows read and written
+    twice). The largest batch, 8 x 27 rows of 2^21 words, puts B2's
+    offsets past 2^28 words."""
+    from stark_brainfuck_tpu_torch.ops import field as f
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+    from stark_brainfuck_tpu_torch.ops import ntt as nt
+
+    seed = 400
+    for inverse, cases in ((False, CELL_FORWARD), (True, CELL_INVERSE)):
+        for rows, logn in cases:
+            n = 1 << logn
+            root = f.primitive_nth_root(n)
+            plan = K.make_kernel_plan(n, root, inverse, "cuda")
+            pack = nt.make_pack(n, root, inverse, "cuda")
+            radix2 = nt._make_small_pack(n, root, inverse, "cuda")
+            seed += 1
+            v = random_field(rows, n, seed)
+            got = K.ntt_kernel(v, plan)
+            want = nt.ntt_with(v, pack)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (
+                f"ntt_kernel differs from the u64 network at {(rows, n)}")
+            del want
+            for i in range(0, rows, CELL_PLAIN_ROWS):
+                part = slice(i, i + CELL_PLAIN_ROWS)
+                plain = nt.ntt_with(v[part], radix2, plain=True)
+                assert torch.equal(got[part], plain), (
+                    f"ntt_kernel differs from the plain network at "
+                    f"{(rows, n)}, rows {i}..")
+                del plain
+            del got, radix2
+            kernel_ms = cuda_ms(lambda: K.ntt_kernel(v, plan), reps=10)
+            u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=3)
+            bound_ms, _ = bound(2 * 16 * rows * n, Ops())
+            emit("cell_ntt", inverse=inverse, rows=rows, n=n, r=plan.r,
+                 c=plan.c, words=rows * n, equal=True, equal_plain=True,
+                 kernel_ms=kernel_ms, u64_ms=u64_ms, bound_ms=bound_ms,
+                 kernel_ps_per_word=kernel_ms * 1e9 / (rows * n),
+                 nvidia_smi=smi)
+            del v
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1855,6 +1924,36 @@ def check_f4(counts, evaluations: int, where):
     assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (where, counts)
 
 
+def transform_launches(n: int):
+    """(B2, B3) launches of one n-point four-step transform: one B2 for a
+    single sub-transform (up to 2^13 points), else B2, B3, B2."""
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
+
+    return (1, 0) if K.plan_geometry(n)[1] == 1 else (2, 1)
+
+
+def intt_launches(bfs):
+    """(B2, B3) launches of the tables' INTTs of one prove on a four-step
+    path: every table of height 2 and up is interpolated twice (its base
+    columns, then its extension columns), on the network below 2."""
+    b2 = b3 = 0
+    for t in bfs.tables:
+        if t.height >= 2:
+            l2, l3 = transform_launches(t.height)
+            b2, b3 = b2 + 2 * l2, b3 + 2 * l3
+    return b2, b3
+
+
+def ntt_launches(bfs, forward: int, n: int):
+    """(B2, B3) launches of one prove: `forward` n-point transforms and the
+    tables' INTTs on the four-step paths, none on the u64 network."""
+    if bfs.last_metrics["ntt_path"].endswith("u64-torch"):
+        return 0, 0
+    l2, l3 = transform_launches(n)
+    i2, i3 = intt_launches(bfs)
+    return forward * l2 + i2, forward * l3 + i3
+
+
 def b_counts(counts):
     """The B1, B2 and B3 launches of a read_counts() dict."""
     return {k: counts[k] for k in ("b1", "b2", "b3")}
@@ -1867,26 +1966,23 @@ BASELINE_FULL_PROVE = {"f3_launches": 8, "stage_c_s": [0.0427, 0.0574],
                        "peak_bytes_at_stage_c": 4553993728}
 # the 2^16-cycle prove before the streamed classes were grouped, one class
 # a dispatch (PERF.md, PR 9 call 8; NVIDIA H100 80GB HBM3, 700.00 W):
-# {(classes, NTT backend): ...} (1 = resident), the merkle time the sum of
-# the base and extension commitments
+# {(classes, NTT backend): ...}, the merkle time the sum of the base and
+# extension commitments; the "auto" rows were measured under "mxu", the
+# four-step route that "auto" takes on the card
 BASELINE_STREAM = {
-    (1, "auto"): {"group": None, "prove_s": 0.5112, "merkle_s": 0.026,
-                  "reopen_s": None, "stage_c_s": 0.0857,
-                  "max_memory_allocated": 8721072640,
-                  "b1": 121, "b2": 0, "b3": 0},
-    (32, "auto"): {"group": 1, "prove_s": 2.5802, "merkle_s": 0.364,
+    (32, "u64"): {"group": 1, "prove_s": 2.5802, "merkle_s": 0.364,
                    "reopen_s": 0.408, "stage_c_s": 1.4049,
                    "max_memory_allocated": 1671442432,
                    "b1": 297, "b2": 0, "b3": 0},
-    (32, "mxu"): {"group": 1, "prove_s": 1.9687, "merkle_s": 0.256,
+    (32, "auto"): {"group": 1, "prove_s": 1.9687, "merkle_s": 0.256,
                   "reopen_s": 0.233, "stage_c_s": 1.0923,
                   "max_memory_allocated": 1673028608,
                   "b1": 297, "b2": 384, "b3": 192},
-    (2, "auto"): {"group": 1, "prove_s": 1.1727, "merkle_s": 0.170,
+    (2, "u64"): {"group": 1, "prove_s": 1.1727, "merkle_s": 0.170,
                   "reopen_s": 0.115, "stage_c_s": 0.2239,
                   "max_memory_allocated": 5088794112,
                   "b1": 125, "b2": 0, "b3": 0},
-    (2, "mxu"): {"group": 1, "prove_s": 0.6328, "merkle_s": 0.033,
+    (2, "auto"): {"group": 1, "prove_s": 0.6328, "merkle_s": 0.033,
                  "reopen_s": 0.043, "stage_c_s": 0.1498,
                  "max_memory_allocated": 4343410688,
                  "b1": 125, "b2": 24, "b3": 12},
@@ -1930,13 +2026,13 @@ def stage_c(bfs, counts):
 
 
 def full_proves(src, smi):
-    """The full-size prove on the default and the mxu NTT path, on the
+    """The full-size prove on the default and the u64 NTT path, on the
     default path with the quotient combination op by op
     (`plain_quotients`, the baseline of F4), and on the default path with
     every fold op by op (`plain_fold`, the baseline of F5 and of the host
     fold): a warm-up prove and verify for each, then two timed proves each,
-    in turns (default, mxu, plain quotients, plain fold, plain fold, plain
-    quotients, mxu, default) so they are compared on the same card in the
+    in turns (default, u64, plain quotients, plain fold, plain fold, plain
+    quotients, u64, default) so they are compared on the same card in the
     same state. Launch counts are set to 0 just before each timed prove and
     read just after it; stage times, the FRI rounds' device and host sums
     (`fri_split`) and peak bytes are kept per prove. Every proof must equal
@@ -1945,7 +2041,7 @@ def full_proves(src, smi):
     launches none of its kernel and exactly `quotient_dispatches` or
     `fold_dispatches` more F1 and F2 kernels. Returns ({path: (stark,
     args)}, {path: launch counts per prove}, the proof)."""
-    paths = {"full_prove": {}, "full_prove_mxu": {"ntt_backend": "mxu"},
+    paths = {"full_prove": {}, "full_prove_u64": {"ntt_backend": "u64"},
              "full_prove_plain_quotients": {}, "full_prove_plain_fold": {}}
     starks, warm, runs = {}, {}, {p: [] for p in paths}
     proof = None
@@ -1967,10 +2063,10 @@ def full_proves(src, smi):
         proof = proof or got
         assert got == proof, f"{phase}: bytes differ from the default path"
         starks[phase] = (bfs, args)
-    for phase in ("full_prove", "full_prove_mxu",
+    for phase in ("full_prove", "full_prove_u64",
                   "full_prove_plain_quotients", "full_prove_plain_fold",
                   "full_prove_plain_fold", "full_prove_plain_quotients",
-                  "full_prove_mxu", "full_prove"):
+                  "full_prove_u64", "full_prove"):
         bfs, args = starks[phase]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -2061,8 +2157,8 @@ STREAM_SMALL = {"stream_min": 1, "stream_classes": 4}
 
 def stream_bytes(want):
     """The N=16384 program down the streamed path (4 classes): cuda and cpu,
-    both NTT paths, every proof equal to the resident proof `want`."""
-    for backend in ("auto", "mxu"):
+    both NTT backends, every proof equal to the resident proof `want`."""
+    for backend in ("u64", "auto"):
         config = {**STREAM_SMALL, "ntt_backend": backend}
         bfs_gpu, args = make_stark(STREAM_SRC, 7, "cuda", **config)
         reset_counts()
@@ -2079,7 +2175,7 @@ def stream_bytes(want):
         m = bfs_gpu.last_metrics
         assert m["stream_group"] == 4, m["stream_group"]
         assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
-            (class_transforms(4, 4), 0) if backend == "mxu" else (0, 0)
+            ntt_launches(bfs_gpu, class_transforms(4, 4), m["stream_block"])
         ), counts
         check_f4(counts, m["stream_classes"], "stream_bytes")
         check_fri(counts, bfs_gpu, "stream_bytes")
@@ -2276,7 +2372,7 @@ def stream_kernels():
         del groups, folded
 
 
-def stream_plans(classes, backends=("auto", "mxu")):
+def stream_plans(classes, backends=("u64", "auto")):
     """(kind, config) of a streamed prove for each class count and NTT
     backend."""
     return [("streamed", {"stream_classes": B, "ntt_backend": nb})
@@ -2293,7 +2389,8 @@ def stream_proves(log2_cycles, smi, plans):
     Each with the launch counts set to 0 just before it and read just
     after, stage times and peak bytes. All proofs must be equal and the
     first must verify. A streamed prove launches B2 and B3 twice and once
-    for each class transform on the mxu path (none on the default one) and,
+    for each class transform, and as the tables' INTTs give, on the
+    four-step path (none on the u64 network) and,
     after a resident prove of the claim, exactly `streamed_b1` B1 kernels.
     Returns the runs."""
     from stark_brainfuck_tpu_torch import VirtualMachine
@@ -2329,7 +2426,7 @@ def stream_proves(log2_cycles, smi, plans):
         if kind == "streamed_plain_quotients":
             f4_run = next(r["launches"] for r in runs
                           if r["kind"] == "streamed" and r["classes"] == B
-                          and r["ntt_backend"] == backend)
+                          and r["ntt_path"] == m["ntt_path"])
             moved = quotient_dispatches(bfs, B)
             assert counts == {**f4_run, "f4": 0, "f4_prologue": 0,
                               "f1": f4_run["f1"] + moved["f1"],
@@ -2341,15 +2438,14 @@ def stream_proves(log2_cycles, smi, plans):
         check_fri(counts, bfs, ("stream_prove", kind, config))
         if kind != "resident":
             assert G == stream.group_size_for(B, S), (B, S, G)
-            # each class transform is 2 B2 and 1 B3 launches on mxu
-            transforms = class_transforms(B, G) if backend == "mxu" else 0
-            assert (counts["b2"], counts["b3"]) == (
-                2 * transforms, transforms), (B, G, counts)
+            assert (counts["b2"], counts["b3"]) == ntt_launches(
+                bfs, class_transforms(B, G), S), (B, G, counts)
             if resident_b1 is not None:
                 assert counts["b1"] == streamed_b1(resident_b1, B, G), (
                     B, G, resident_b1, counts)
         else:
-            assert (counts["b2"], counts["b3"]) == (0, 0), counts
+            assert (counts["b2"], counts["b3"]) == ntt_launches(
+                bfs, 2, m["fri_domain"]), counts
             resident_b1 = counts["b1"]
         stages = m["stages_s"]
         run = {"kind": kind, "ntt_backend": backend,
@@ -2407,25 +2503,23 @@ def ref_codec_bytes(native_proof):
     both NTT paths and on cpu (one prove: the bytes do not depend on the
     path); every proof verifies; the card ran B1 for the salt and
     randomizer PRFs (the trees are hashlib host trees over pickled leaves)
-    and B2/B3 under mxu; the bytes differ from the native proof. Returns
-    the launches of B1 on the default path's prove and of B2/B3 on the mxu
-    path's."""
+    and B2/B3 under "auto"; the bytes differ from the native proof. Returns
+    the launches of the "auto" prove, the card's default route."""
     proof, launches = None, {}
-    for backend in ("auto", "mxu"):
+    for backend in ("u64", "auto"):
         bfs, args = make_stark(STREAM_SRC, 7, "cuda", codec="ref",
                                ntt_backend=backend)
         got, wall, counts = timed_prove(bfs, args)
         proof = proof or got
-        launches.update(
-            {k: counts[k] for k in ("b1", "f1", "f2", "f3", "f4", "f5")}
-            if backend == "auto" else {"b2": counts["b2"], "b3": counts["b3"]})
+        if backend == "auto":
+            launches = counts
         assert got == proof, "ref_codec_bytes: the NTT paths differ"
         assert got != native_proof, "ref_codec_bytes: equals the native proof"
         assert bfs.verify(got), bfs.last_rejection
         assert counts["b1"] > 0, counts
         check_f4(counts, 1, "ref_codec_bytes")
         check_fri(counts, bfs, "ref_codec_bytes")
-        assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "mxu")
+        assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "auto")
         emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
              fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
              prove_s=wall, launches=counts, verified=True,
@@ -2550,8 +2644,8 @@ def soundness_params(smi):
     Then a counter of 2^13 cycles (FRI 2^21, resident): one timed prove on
     each NTT path, the same bytes, verified."""
     proof = None
-    for device, backend in (("cuda", "auto"), ("cuda", "mxu"),
-                            ("cpu", "auto"), ("cpu", "mxu")):
+    for device, backend in (("cuda", "u64"), ("cuda", "mxu"),
+                            ("cpu", "u64"), ("cpu", "mxu")):
         bfs, args = make_stark(SOUNDNESS_SRC, 7, device, ntt_backend=backend,
                                **SOUNDNESS)
         got = bfs.prove(*args)
@@ -2564,7 +2658,7 @@ def soundness_params(smi):
          identical=True, verified=True)
     src = counter_program(1 << SOUNDNESS_LOG2_CYCLES)
     proof = None
-    for backend in ("auto", "mxu"):
+    for backend in ("u64", "mxu"):
         bfs, args = make_stark(src, 0, "cuda", ntt_backend=backend,
                                **SOUNDNESS)
         assert not bfs.use_stream
@@ -2776,7 +2870,7 @@ def rank_proves(mesh, payload):
     from stark_brainfuck_tpu_torch.parallel.multihost import env_device
 
     out = {}
-    for backend in ("auto", "mxu"):
+    for backend in ("u64", "auto"):
         bfs, args = make_stark(
             payload["src"], payload["seed"], env_device(),
             trace=payload.get("trace"), ntt_backend=backend,
@@ -2862,14 +2956,14 @@ def mesh_kernels(src, world=2):
 
 def mesh_bytes(src, want: bytes):
     """The N=16384 program over 2 and 4 ranks, on the card and on the CPU,
-    default and mxu: every rank's bytes equal the single-device proof."""
+    "u64" and "auto": every rank's bytes equal the single-device proof."""
     digest = hashlib.sha256(want).hexdigest()
     verified = False
     for device in ("cuda", "cpu"):
         for world in (2, 4):
             ranks = spawn_on(device, "rank_proves", world,
                              {"src": src, "seed": 7, "keep": not verified})
-            for backend in ("auto", "mxu"):
+            for backend in ("u64", "auto"):
                 rs = [r[backend] for r in ranks]
                 for rank, r in enumerate(rs):
                     assert r["digest"] == digest, (
@@ -2878,7 +2972,7 @@ def mesh_bytes(src, want: bytes):
                     assert r["mesh"]["sharded_commit"], r["mesh"]
                     if device == "cuda":
                         assert r["launches"]["b1"] > 0, (world, rank, r)
-                        assert (r["launches"]["b2"] > 0) == (backend == "mxu")
+                        assert (r["launches"]["b2"] > 0) == (backend == "auto")
                         check_f4(r["launches"], 1, ("mesh_bytes", world, rank))
                         assert r["launches"]["f5"] == len(
                             r["fri_device_fold_rounds"]), (world, rank, r)
@@ -2898,7 +2992,7 @@ def mesh_bytes(src, want: bytes):
 
 def mesh_prove(src, want: bytes, smi, world=2):
     """The full-width resident prove (FRI 2^21) on `world` ranks (sharing
-    the card where there is one), default and mxu: a warm-up and a timed
+    the card where there is one), "u64" and "auto": a warm-up and a timed
     prove each. Returns each rank's launch counts, {backend: [counts of
     rank 0, rank 1, ...]}."""
     from stark_brainfuck_tpu_torch import VirtualMachine
@@ -2908,8 +3002,10 @@ def mesh_prove(src, want: bytes, smi, world=2):
                      {"src": src, "seed": 0, "trace": trace, "warmups": 1},
                      timeout=900)
     digest = hashlib.sha256(want).hexdigest()
+    # the tables' heights, from a stark that proves nothing
+    intt = intt_launches(make_stark(src, 0, "cpu", trace=trace)[0])
     launches = {}
-    for backend in ("auto", "mxu"):
+    for backend in ("u64", "auto"):
         rs = [r[backend] for r in ranks]
         for rank, r in enumerate(rs):
             assert r["digest"] == digest, (
@@ -2920,8 +3016,13 @@ def mesh_prove(src, want: bytes, smi, world=2):
             # every round from 2^21 down to 2^14: in blocks, then gathered
             assert c["f5"] == len(r["fri_device_fold_rounds"]) == 8, (
                 backend, rank, c)
+            # the distributed transform's two local DFTs and its twiddle a
+            # stage, and the tables' INTTs (replicated), on the card's
+            # default route
+            i2, i3 = intt if backend == "auto" else (0, 0)
             assert (c["b2"], c["b3"]) == (
-                (4, 2) if backend == "mxu" else (0, 0)), (backend, rank, c)
+                (4 + i2, 2 + i3) if backend == "auto" else (0, 0)), (
+                backend, rank, c)
         launches[backend] = [r["launches"] for r in rs]
         emit("mesh_prove", world=world, ntt_backend=backend,
              ntt_path=rs[0]["ntt_path"], fri_domain=1 << LOG2_FRI,
@@ -2951,8 +3052,9 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
     shape `rows[main]`, the largest error over every checked shape;
     `launches` of the resident full-size prove, `launches_streamed` of the
     streamed one (32 classes), `launches_mesh` of one rank of the 2-rank
-    mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14 (B2
-    and B3: on the mxu path); `no_library` says why library_ms is null."""
+    mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14, each
+    on the card's default route, the four-step transform; `no_library` says
+    why library_ms is null."""
     main_shape = rows[main]
     return {
         "name": name,
@@ -3133,6 +3235,8 @@ def main():
         # against the u64 network
         check_b2_every_size()
         b2, b3 = check_ntt_kernels()
+        # the composed transform at the benchmark cells' batches
+        cell_ntt(smi)
 
         # 4b. F1, F2, F3 against their plain versions; F4 against the
         # op-by-op quotient stack; F5 and the host fold against the plain
@@ -3156,16 +3260,19 @@ def main():
         print(smi, flush=True)
         return
 
-    # 6. full-size prove on the card, default and mxu NTT in turns
+    # 6. full-size prove on the card, default and u64 NTT in turns
     starks, launches, proof_full = full_proves(full_src, smi)
+    # one four-step transform per LDE stage (two sub-NTTs and one twiddle)
+    # and the tables' INTTs
+    full_ntt = ntt_launches(starks["full_prove"][0], 2, 1 << LOG2_FRI)
     for counts in launches["full_prove"]:
+        assert (counts["b2"], counts["b3"]) == full_ntt, counts
+    for counts in launches["full_prove_u64"]:
         assert (counts["b2"], counts["b3"]) == (0, 0), counts
-    # one four-step transform per LDE stage: two sub-NTTs and one twiddle
-    for counts in launches["full_prove_mxu"]:
-        assert (counts["b2"], counts["b3"]) == (4, 2), counts
     if opts.profile:
         profile_prove(*starks["full_prove"], opts.profile)
-    counts = launches["full_prove_mxu"][0]
+    counts = launches["full_prove"][0]
+    u64_counts = launches["full_prove_u64"][0]
     del starks
 
     if not opts.mesh:
@@ -3187,9 +3294,9 @@ def main():
         # F5: one launch a device fold round, 2^22 down to 2^14
         assert [run["launches"]["f5"] for run in runs] == [9] * len(runs), [
             run["launches"] for run in runs]
-        streamed = {**{k: runs[1]["launches"][k]
-                       for k in ("b1", "f1", "f2", "f3", "f4", "f5")},
-                    **{k: runs[2]["launches"][k] for k in ("b2", "b3")}}
+        # the 32-class prove on the four-step transform, the card's default
+        streamed = {k: runs[2]["launches"][k]
+                    for k in ("b1", "b2", "b3", "f1", "f2", "f3", "f4", "f5")}
         assert min(streamed.values()) > 0, streamed
 
         # 8. the reference codec, the DEBUG checks, the polynomial toolbox,
@@ -3204,10 +3311,7 @@ def main():
     if opts.mesh:
         print(smi, flush=True)
         return
-    mesh_counts = {**{k: on_mesh["auto"][0][k]
-                      for k in ("b1", "f1", "f2", "f3", "f4", "f5")},
-                   "b2": on_mesh["mxu"][0]["b2"],
-                   "b3": on_mesh["mxu"][0]["b3"]}
+    mesh_counts = on_mesh["auto"][0]
 
     # 10. kernels line (ms at the prover's largest shape of each kernel)
     # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
@@ -3277,7 +3381,7 @@ def main():
                       "_acc_group:765, staged as comb_quot{ti} + "
                       "comb_acc_q{T} and comb_pa + comb_acc_q2 "
                       "(stark.py:1386-1428)",
-        extra={"launches_mxu": counts["f4"],
+        extra={"launches_u64": u64_counts["f4"],
                "launches_prologue": full["f4_prologue"]}))
     # F5 stands for XLA's compiled fold round, fri.fold.n{N}.tree{t}: ms
     # and bound at the top device round of the resident prove, N = 2^21
@@ -3292,7 +3396,7 @@ def main():
         replaces_note="no pl.pallas_call: the XLA-compiled fold round "
                       "_fold_device:55 (fri.fold.n{N}.tree{t}), whose "
                       "arithmetic is _fold_math:39",
-        extra={"launches_mxu": counts["f5"]}))
+        extra={"launches_u64": u64_counts["f5"]}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

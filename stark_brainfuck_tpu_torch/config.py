@@ -58,11 +58,13 @@ class StarkConfig:
     # (utils/checkpoint.py); None keeps none
     checkpoint_dir: Optional[str] = None
 
-    # forward-LDE NTT: "auto" and "u64" run the u64 butterfly network (as
-    # the JAX package resolves "auto"); "mxu" runs the four-step transform
-    # on kernels B2/B3 (ops/kernel_ntt.py, csrc/ntt.cu), the port of the JAX
-    # package's int8-limb MXU path. mxu_ntt_min is accepted and unused, as
-    # there.
+    # the LDE's transforms (the tables' INTTs, the forward NTT): "mxu" runs
+    # the four-step transform on kernels B2/B3 (ops/kernel_ntt.py,
+    # csrc/ntt.cu; their plain torch versions on the CPU), the port of the
+    # JAX package's int8-limb MXU path; "u64" runs the u64 butterfly
+    # network; "auto" is "mxu" on a CUDA device and "u64" on any other (the
+    # JAX package resolves "auto" to the network on every device).
+    # mxu_ntt_min is accepted and unused, as there.
     ntt_backend: str = "auto"
     mxu_ntt_min: int = 1 << 14
 

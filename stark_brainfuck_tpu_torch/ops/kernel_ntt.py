@@ -1,4 +1,5 @@
-"""Four-step Goldilocks NTT on kernels B2 and B3 (`ntt_backend="mxu"`).
+"""Four-step Goldilocks NTT on kernels B2 and B3 (`ntt_backend="mxu"`,
+and "auto" on a CUDA device).
 
 The counterpart of the JAX package's `ops/pallas_ntt.py`: the same
 transform, bit-identical to the u64 butterfly network of `ops/ntt.py`. The
@@ -33,6 +34,7 @@ tensor it runs its plain torch version (`subntt_plain`,
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -193,7 +195,19 @@ def _sub_plan(m: int, root: int, scale: int, device) -> SubPlan:
 def make_kernel_plan(n: int, root: int, inverse: bool = False,
                      device=None) -> KernelNttPlan:
     """Tables for an n-point forward (or inverse, scaled by n^-1) NTT with
-    `root`, on `device`."""
+    `root`, on `device`. Plans are kept per (n, root, inverse, device): a
+    prover is built for every job and asks for the same few plans (its
+    tables' INTTs, its LDE or class transform), and their tables are only
+    ever read. A CUDA device without an index is the current one."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return _kernel_plan(n, root, bool(inverse), device)
+
+
+@lru_cache(maxsize=64)
+def _kernel_plan(n: int, root: int, inverse: bool, device) -> KernelNttPlan:
     w = f.h_inverse(root) if inverse else root
     scale = f.h_inverse(n % f.P) if inverse else 1
     r, c = plan_geometry(n)
@@ -418,11 +432,13 @@ def ntt_kernel(values, plan: KernelNttPlan):
 
 
 def forward_ntt(values, pack):
-    """The forward NTT along the last axis with whichever tables the caller
+    """The NTT along the last axis with whichever tables the caller
     resolved: a `KernelNttPlan` runs the four-step transform on B2/B3, a
-    pack of `ops/ntt.py` the u64 butterfly network. Bit-identical. Both LDE
-    stages of the resident prover and every class transform of the streamed
-    one go through here."""
+    pack of `ops/ntt.py` the u64 butterfly network. Bit-identical. Forward,
+    or inverse scaled by n^-1 where the tables are an inverse's. Both LDE
+    stages of the resident prover, every class transform of the streamed
+    one and every table's INTT (`ops/ntt._randomized_coefficients`) go
+    through here."""
     if isinstance(pack, KernelNttPlan):
         return ntt_kernel(values, pack)
     return nt.ntt_with(values, pack)

@@ -221,9 +221,13 @@ def coset_interpolate(values, offset: int, root: int):
 
 
 def _randomized_coefficients(trace, randomizers, intt_pack):
-    """Subgroup INTT of the trace rows plus the (x^H - 1)·r(x) blinding."""
+    """Subgroup INTT of the trace rows plus the (x^H - 1)·r(x) blinding.
+    `intt_pack` is a pack of this module or a kernel plan of
+    `ops/kernel_ntt.py` (`forward_ntt` takes either)."""
+    from .kernel_ntt import forward_ntt  # kernel_ntt imports this module
+
     H = trace.shape[-1]
-    coeffs = ntt_with(trace, intt_pack)
+    coeffs = forward_ntt(trace, intt_pack)
     if randomizers is not None and randomizers.shape[-1] > 0:
         R = randomizers.shape[-1]
         assert R <= H, "num_randomizers must not exceed the trace height"

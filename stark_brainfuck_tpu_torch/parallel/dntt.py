@@ -23,8 +23,9 @@ of the twiddle matrix, never the N-word table, and no N-long row.
 
 The two local DFTs run along the middle axis of the rank's (B, R, C/D) and
 (B, C, R/D) blocks (`_dft_middle`): on the u64 butterfly network through the
-prover's one switch, `ops/kernel_ntt.forward_ntt`, by default; on kernel B2
-under `ntt_backend="mxu"` (R and C are at most 2^13 up to N = 2^26, so one
+prover's one switch, `ops/kernel_ntt.forward_ntt`, under "u64" and on the
+CPU under "auto"; on kernel B2 under "mxu" and, on a CUDA device, under
+"auto" (R and C are at most 2^13 up to N = 2^26, so one
 launch each), which reads and writes the transposed views through its own
 strides, so that no torch transpose copy of the block is made around it.
 The twiddle step is a field multiply by the local table;

@@ -10,8 +10,11 @@ group:
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
     as int64 tensor programs on `device` (CUDA unless the caller asks for
-    the CPU); with `ntt_backend="mxu"` the forward LDE NTT of both stages
-    is the four-step transform on kernels B2/B3 (`ops/kernel_ntt.py`);
+    the CPU); on a CUDA device (`ntt_backend` "auto" or "mxu") every LDE
+    transform, the tables' INTTs and the forward NTT of both stages or of
+    every streamed class, is the four-step transform on kernels B2/B3
+    (`ops/kernel_ntt.py`); "u64", and "auto" on the CPU, keep the u64
+    butterfly network of `ops/ntt.py`;
   - from `device_commit_min` up, every commitment is a device Merkle tree
     hashed by kernel B1; below it the trees are built on the host;
   - from FRI domains of `stream_min` up the prover is streamed: whole base
@@ -372,14 +375,16 @@ class BrainfuckStark:
                 and self.mesh.shardable(self.fri.domain.length))
 
     def _ntt_path(self) -> str:
-        """The forward-LDE NTT that `ntt_backend` resolves to: the four-step
+        """The LDE transforms that `ntt_backend` resolves to: the four-step
         transform on kernels B2/B3 for "mxu" (their plain torch versions on
-        the CPU), else the u64 butterfly network. Under a mesh the same
+        the CPU) and for "auto" on a CUDA device; the u64 butterfly network
+        for "u64" and for "auto" on any other device. Under a mesh the same
         names the local route of the distributed transform's two DFTs."""
-        if self.config.ntt_backend != "mxu":
+        backend = self.config.ntt_backend
+        cuda = self.device.type == "cuda"
+        if backend == "u64" or (backend == "auto" and not cuda):
             return "u64-torch"
-        return ("four-step-cuda" if self.device.type == "cuda"
-                else "four-step-plain")
+        return "four-step-cuda" if cuda else "four-step-plain"
 
     def _mesh_ntt_path(self) -> str:
         """`_ntt_path`, with what a mesh adds: `dntt-mesh` for the
@@ -394,7 +399,8 @@ class BrainfuckStark:
 
     def _lde_packs(self):
         """NTT twiddle and coset scale tables on the device, cached per
-        resolved NTT path."""
+        resolved NTT path. On the four-step paths the tables' INTTs are
+        kernel plans too, where the height has one (2 and up)."""
         path = self._ntt_path()
         cache = getattr(self, "_packs_cache", None)
         if cache is not None and cache[0] == path:
@@ -421,6 +427,12 @@ class BrainfuckStark:
             # the kernel plan covers every domain up to 2^26 (or raises)
             # and nothing falls back
             fwd = kn.make_kernel_plan(N, fri.domain.omega, False, dev)
+
+        def intt(t):
+            if path == "u64-torch" or t.height < 2:
+                return nt.make_pack(t.height, t.omicron, True, dev)
+            return kn.make_kernel_plan(t.height, t.omicron, True, dev)
+
         packs = {
             "fwd": fwd,
             "dntt": dntt,
@@ -429,7 +441,7 @@ class BrainfuckStark:
             ),
             "tables": tuple(
                 (
-                    nt.make_pack(t.height, t.omicron, True, dev),
+                    intt(t),
                     nt.scale_table(
                         fri.domain.offset, t.height + t.num_randomizers, dev
                     ),

@@ -16,7 +16,8 @@ NTT: with x_i = offset·ω^i and i = b + B·q,
 row, a segment fold, and one batched size-S NTT; the coefficient rows (of
 the trace's height, small) are the only state that persists. That NTT is
 the forward LDE transform at size S, so it runs where `ntt_backend` sends
-the resident one: the u64 network, or kernels B2/B3 under "mxu"
+the resident one: kernels B2/B3 on a CUDA device ("auto", "mxu"), the u64
+network under "u64" and on the CPU under "auto"
 (`ops/kernel_ntt.forward_ntt`).
 
 Merkle accumulation: adjacent leaves 2t, 2t+1 live in classes (r, r+1) at
@@ -344,8 +345,8 @@ def make_stream_plan(N: int, B: int, omega: int, device=None,
                      kernel_ntt: bool = False):
     """Shared per-domain tables of streamed evaluation: the size-S forward
     transform with root ω^B, as a u64 pack of `ops/ntt.py` or, with
-    `kernel_ntt` (the prover's `ntt_backend="mxu"`), as a four-step plan of
-    kernels B2/B3."""
+    `kernel_ntt` (the prover's four-step paths: "mxu", and "auto" on a CUDA
+    device), as a four-step plan of kernels B2/B3."""
     S = N // B
     root = f.h_pow(omega, B)
     if kernel_ntt:

@@ -130,12 +130,14 @@ def test_ntt_kernel_matches_ntt_pallas_interpret(logn, inverse):
     assert np.array_equal(U(K.ntt_kernel(T(v[None]), plan))[0], want)
 
 
-@pytest.mark.parametrize("logn", range(5, 27))
+@pytest.mark.parametrize("logn", [1, *range(5, 27)])
 def test_plan_geometry_invariants_and_exactness(logn):
     """The port's own four-step split: r·c = n, both within a block's
     reach, c >= 128 for B3's factored table, c <= r so the strided pass is
-    the shorter one; and the transform equals the u64 network (n <= 2^16,
-    forward and inverse)."""
+    the shorter one; and the transform equals the u64 network on a table's
+    batch of rows (n <= 2^16, forward and inverse: the tables' INTTs),
+    `forward_ntt` dispatches the plan, and the inverse undoes the forward
+    transform."""
     n = 1 << logn
     root = jf.primitive_nth_root(n)
     r, c = K.plan_geometry(n)
@@ -160,11 +162,15 @@ def test_plan_geometry_invariants_and_exactness(logn):
         assert tuple(kp.tw_hi.shape) == (c // 128, r)
         assert tuple(kp.tw_lo.shape) == (128, r)
     if logn <= 16:
-        v = T(_inputs(2, n, logn))
+        v = T(_inputs(9, n, logn))
+        got = {}
         for inverse in (False, True):
             plan = K.make_kernel_plan(n, root, inverse)
             want = tnt.ntt_with(v, tnt.make_pack(n, root, inverse))
-            assert torch.equal(K.ntt_kernel(v, plan), want)
+            got[inverse] = K.ntt_kernel(v, plan)
+            assert torch.equal(got[inverse], want)
+            assert torch.equal(K.forward_ntt(v, plan), want)
+        assert torch.equal(K.ntt_kernel(got[True], kp), v)
 
 
 # ---------------------------------------------------------------------------

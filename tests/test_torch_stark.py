@@ -5,6 +5,7 @@ asked for the CPU, and it imports no JAX."""
 
 import ast
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 import stark_brainfuck_tpu as J
 import stark_brainfuck_tpu_torch as TP
+from stark_brainfuck_tpu_torch.ops.kernel_ntt import KernelNttPlan
 from stark_brainfuck_tpu_torch.protocol.channel import ProofStream
 
 torch.set_num_threads(1)
@@ -84,6 +86,39 @@ def test_proofs_cross_verify(key):
     assert jb.verify(pt), jb.last_rejection
 
 
+# what `ntt_backend` resolves to on each device: "auto" is the four-step
+# transform on a CUDA device and the u64 network elsewhere
+NTT_PATHS = {
+    ("auto", "cpu"): "u64-torch", ("auto", "cuda"): "four-step-cuda",
+    ("u64", "cpu"): "u64-torch", ("u64", "cuda"): "u64-torch",
+    ("mxu", "cpu"): "four-step-plain", ("mxu", "cuda"): "four-step-cuda",
+}
+
+
+@pytest.mark.parametrize("backend,device", list(NTT_PATHS))
+def test_ntt_path_resolution(backend, device):
+    """`_ntt_path` reads only the configured backend and the device's type,
+    so a stub holding the two stands for a prover (no card needed)."""
+    stub = SimpleNamespace(config=SimpleNamespace(ntt_backend=backend),
+                           device=torch.device(device))
+    assert TP.BrainfuckStark._ntt_path(stub) == NTT_PATHS[backend, device]
+
+
+def _assert_table_intts(tb, kernel: bool):
+    """Every table of height 2 and up takes its INTT through a kernel plan
+    on the four-step paths (`kernel`) and through a u64 pack elsewhere."""
+    packs = tb._lde_packs()["tables"]
+    assert max(t.height for t in tb.tables) >= 2
+    for t, tp in zip(tb.tables, packs):
+        if t.height == 0:
+            assert tp is None
+            continue
+        plan = tp[0]
+        assert isinstance(plan, KernelNttPlan) == (kernel and t.height >= 2)
+        if isinstance(plan, KernelNttPlan):
+            assert plan.n == t.height
+
+
 # plus4: a single sub-NTT (N <= 2^13); device_commit: N = 2^14, the
 # composed four-step path with r = c = 128
 MXU_GEOMETRY = {"plus4": False, "device_commit": True}
@@ -100,6 +135,8 @@ def test_mxu_seeded_proof_bytes_equal_jax(key):
     assert (plan.sub_c is not None) == MXU_GEOMETRY[key]
     if MXU_GEOMETRY[key]:
         assert (plan.r, plan.c) == (128, 128)
+    _assert_table_intts(tb, kernel=True)
+    _assert_table_intts(tb0, kernel=False)
 
 
 @pytest.mark.parametrize("key", list(MXU_GEOMETRY))
@@ -146,6 +183,7 @@ def test_streamed_proof_bytes_equal_jax_and_resident(key, backend):
     assert m["ntt_path"] == (
         "four-step-plain" if backend == "mxu" else "u64-torch")
     assert tb._lde_packs()["fwd"] is None, "a streamed prove needs no N pack"
+    _assert_table_intts(tb, kernel=backend == "mxu")
     for stage in ("stage_a (base coeffs)", "base merkle (streamed)",
                   "stage_b (ext coeffs)", "ext merkle (streamed)",
                   "reopen (streamed 2nd pass)"):
