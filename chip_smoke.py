@@ -1,12 +1,13 @@
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""On-card check of the PyTorch/CUDA port's kernels and proof bytes.
 
-    python3 chip_smoke.py [--profile DIR] [--b2-sweep] [--b2-parts]
-                          [--stream-log2-cycles K] [--field-kernels]
-                          [--fri-fold] [--turns PARENT_DIR]
-                          [--ref-codec] [--mesh [RANKS]]
+    python3 chip_smoke.py [--b2-sweep] [--b2-parts] [--field-kernels]
+                          [--fri-fold] [--ref-codec] [--mesh [RANKS]]
 
-Drives `stark_brainfuck_tpu_torch` on the card, phase by phase, one JSON
-line each; any failure raises and exits non-zero:
+The port's speed is measured by the benchmark, `python3 bench_gpu/run.py`.
+This script holds every kernel to its plain torch version on one NVIDIA
+GPU, proof bytes to the CPU's, and launch counts to what each prove path
+must launch. It drives `stark_brainfuck_tpu_torch` on the card, phase by
+phase, one JSON line each; any failure raises and exits non-zero:
 
   1. device: `nvidia-smi` name and power limit, torch's device name;
   2. build: compiles every kernel source (csrc/*.cu) with nvcc, one
@@ -27,18 +28,16 @@ line each; any failure raises and exits non-zero:
      shapes (FRI 2^21: c = 1024, r = 2048; 19 base and 27 extension rows):
      B2 in the two strided forms that `ntt_kernel` launches (the column
      pass, and the row pass with its transposed store) and in the
-     contiguous `subntt` form; then ntt_full: the composed `ntt_kernel`
-     against the u64 network at (19, 2^21) and (27, 2^21), with both times
-     and the transform's own bound (two passes over the block of rows);
-     cell_ntt: `ntt_kernel` against the u64 network and against the plain
-     radix-2 network, exactly, at the batches of the benchmark's cells:
-     the class transforms (8 x 19 and 8 x 27 rows at 2^21, 19 and 27 at
-     2^21, 8 x 27 at 2^19) and the tables' INTTs (7 and 12 rows at 2^15,
-     2^16, 2^20, 2^21), with both times and the transform's bound;
+     contiguous `subntt` form; cell_ntt: the composed `ntt_kernel` against
+     the plain radix-2 network (`network_ntt`), exactly, at the batches of
+     the benchmark's cells: the class transforms (8 x 19 and 8 x 27 rows
+     at 2^21, 19 and 27 at 2^21, 8 x 27 at 2^19) and the tables' INTTs (7
+     and 12 rows at 2^15, 2^16, 2^20, 2^21), with its time and the
+     transform's bound;
      field_kernels: the field layer's kernels (csrc/field.cu) against their
      plain torch versions, exactly, each launched once and counted: F1
-     (add, sub, mul) on two 2^21-word codewords, at the u64 network's
-     twiddle broadcast and on every pair of edge words; F2 (F_p^3 mul,
+     (add, sub, mul) on two 2^21-word codewords, at a radix-2 network
+     stage's twiddle broadcast and on every pair of edge words; F2 (F_p^3 mul,
      mul_base) on (2^21, 3) codewords, contiguous and in the extension
      LDE's strided column layout, and on every pair of edge elements; F3
      (`_acc_group`) on the prove's two groups (base 16 terms, extension
@@ -60,8 +59,7 @@ line each; any failure raises and exits non-zero:
      once and counted, timed beside the plain function with the card's
      plan and bounded by `quotient_work`; beside them the rest of the
      parent's form on the same operands (F3 on each table's stack and on
-     the permutation stack, which is built op by op), whose per-table F4
-     launches the parent's own run times; fri_fold: F5 (csrc/fri.cu, one FRI fold
+     the permutation stack, which is built op by op); fri_fold: F5 (csrc/fri.cu, one FRI fold
      round in one launch) against the plain fold (`fold_plain`, op by op
      on F1/F2), exactly, at every device round of the full-size prove (N =
      2^21 .. 2^14), at the first round of the FRI 2^22 and 2^26 streamed
@@ -75,34 +73,22 @@ line each; any failure raises and exits non-zero:
      FOLD_PARALLEL_MINS (the output count from which a round folds on
      every core), each timed at those sizes and checked;
   5. bytes across devices: a seeded N=16384 prove on cuda and on cpu must
-     give the same bytes, and both must verify; the same again with
-     `ntt_backend="mxu"` (kernels B2/B3), whose bytes must equal the
-     default backend's;
+     give the same bytes, and both must verify;
   6. full-size prove: a counter program of 2^15 cycles (FRI domain 2^21,
-     the largest resident one) on the default NTT path (full_prove: on the
-     card the four-step transform, B2/B3, for the LDE's forward NTTs and
-     the tables' INTTs) and on the u64 network (`ntt_backend="u64"`,
-     full_prove_u64): a warm-up prove and verify
-     each, then two timed proves each, in turns, every one with its kernel
-     launch counts (B1, B2, B3 and F1-F5; F1-F3 above 0, F4 exactly once
-     a quotient evaluation on every prove of the card, after one prologue:
-     one resident, one a class streamed, and F5 exactly once a device fold round: 8 here, 9 at
-     FRI 2^22, 13 at 2^26, one a device round on every other prove),
-     stage times, FRI's rounds summed on the device and on the host, peak
-     device memory at each stage mark and
-     the prover's NTT butterfly, hashed leaf and extended row counts and
-     rates (so too each stream_prove below); all proofs byte-identical;
-     and in the same turns the default path with the quotient combination
-     op by op (full_prove_plain_quotients, F4's baseline: no F4, and
-     exactly the F1/F2 launches of `quotient_dispatches` more) and with
-     every fold op by op (full_prove_plain_fold, F5's and the host fold's
-     baseline: no F5, and exactly the F1/F2 launches of `fold_dispatches`
-     more);
+     the largest resident one), proved once on each path: the default
+     (full_prove), the quotient combination op by op
+     (full_prove_plain_quotients, F4's baseline: no F4, and exactly the
+     F1/F2 launches of `quotient_dispatches` more) and every fold op by
+     op (full_prove_plain_fold, F5's and the host fold's baseline: no F5,
+     and exactly the F1/F2 launches of `fold_dispatches` more); each
+     verified, all proofs byte-identical, each with its kernel launch
+     counts (B1, B2, B3 and F1-F5; B2/B3 two four-step transforms and the
+     tables' INTTs, F1-F3 above 0, F4 exactly once a quotient evaluation
+     after one prologue, F5 exactly once a device fold round: 8 here);
   7. the streamed prover (FRI domains >= `stream_min`, strided classes):
      stream_bytes: the N=16384 program with `stream_min=1,
-     stream_classes=4` on cuda and on cpu, under "u64" and "auto" (the
-     four-step transform on the card, the network on the CPU), every proof
-     equal to the resident one of step 5; stream_checkpoint: the same with
+     stream_classes=4` on cuda and on cpu, both proofs equal to the
+     resident one of step 5; stream_checkpoint: the same with
      a `checkpoint_dir`, whose second prove resumes both commit stages to
      the same bytes; stream_kernels: B1 against its plain version at the
      streamed shapes (32 classes of S = 2^17, G = 8 classes a dispatch: a
@@ -113,57 +99,49 @@ line each; any failure raises and exits non-zero:
      messages of the combination's tree), B2 and B3 against their plain
      versions in the launches of the size-S class transform at a group's
      batch (c = 256, r = 512; G x 19 and G x 27 rows), `block_values` on
-     B2/B3 against the u64 network at (19, S) and (27, S), and
-     `group_values` of G classes on B2/B3 and on the u64 network against G
-     one-class evaluations, all exactly; stream_prove: a counter of 2^16
-     cycles (FRI 2^22, which the default `stream_min` sends down the
-     streamed path) proved resident (`stream_min` = 2^23) and streamed with
-     32 (G = 8) and with 2 classes (G = 2), each under "u64" and "auto", all
-     bytes equal, B2/B3 launched twice and once a class transform on the
-     four-step path (4B/G + 2B transforms) and as the tables' INTTs give
-     (`intt_launches`), none on the u64 network, B1 exactly as often as the resident
-     prove's count gives (`streamed_b1`), with launch counts, the group,
-     the merkle and reopen times, stage times and peak memory per prove
-     beside the ungrouped prove's (`BASELINE_STREAM`), then the 32-class
-     default prove again with the quotient combination op by op (F4's
-     baseline, as in step 6);
+     B2/B3 against its plain versions on the CPU at (19, S) and (27, S),
+     and `group_values` of G classes against G one-class evaluations, all
+     exactly; stream_launches: a counter of 2^16 cycles (FRI 2^22, which
+     the default `stream_min` sends down the streamed path) proved
+     resident (`stream_min` = 2^23) and in 32 classes (G = 8), the bytes
+     equal, B2/B3 launched twice and once a class transform (4B/G + 2B
+     transforms) and as the tables' INTTs give (`intt_launches`), B1
+     exactly as often as the resident prove's count gives (`streamed_b1`),
+     F4 once a class and F5 once a device fold round (9);
   8. the other paths of the main path's kernels: ref_codec_bytes: the
      N=16384 program with `codec="ref"` (host trees over pickled leaf
      objects; B1 still runs the salt and randomizer PRFs), the same bytes on
-     cuda under "u64" and "auto" and on cpu, verified, B1 launched (and
-     B2/B3 under "auto"), not the native bytes; ref_codec_golden: a stark on the
+     cuda and on cpu, verified, B1, B2 and B3 launched, not the native
+     bytes; ref_codec_golden: a stark on the
      card accepts the reference prover's proof tests/vectors/
      ref_proof_plus4.bin and rejects it with a terminal changed;
-     ref_codec_prove: a counter of about 2^10 cycles (FRI 2^16) under the
-     reference codec, one timed prove and verify with its stage times;
      debug_degrees: the N=16384 program with `debug_degree_checks=True`,
      bytes equal to step 5's; poly_toolbox: `ops/fastpoly.py` on cuda equal
      to cpu and to `ops/poly.py` (interpolate, evaluate, coset division);
      soundness_params: security level 128 at
      expansion 16 (32 colinearity checks, the most its FRI allows), a
-     FRI-2^14 program equal on cuda and cpu on both NTT paths, then a
-     counter of 2^13 cycles (FRI 2^21, resident), one timed prove on each
-     NTT path, same bytes, verified;
+     FRI-2^14 program equal on cuda and cpu, then a counter of 2^13 cycles
+     (FRI 2^21, resident), verified, with its launch counts;
   9. the sharded prover (`mesh_shape`): the ranks of a mesh are worker
      processes of `parallel/multihost.py` that share the one card (gloo,
      exchanges staged through pinned host memory), the kernels built once
      here before they start. dntt_check: `distributed_ntt` over 2 and 4
-     ranks at (27, 2^21) on both local routes, every rank's block equal to
-     the single-device u64 network's, exactly, with each rank's B2/B3
-     launches and the time of the torch copies left around them;
+     ranks at (27, 2^21), every rank's block equal to the single-device
+     `ntt_kernel`'s, exactly, with each rank's B2/B3 launches and the time
+     of the torch copies left around them;
      mesh_kernels: on each of 2 ranks, B2 in the two strided forms of the
      distributed transform's local DFTs (19 and 27 rows), B3 with the rank's
      offset tables, B1 at the block's leaf, salt and tree-level sizes, and
      F4 on the block with the next row rolled across the ranks, each
      against its plain version, exactly (F4 on the rank's block of
      the combination); mesh_bytes: the N=16384
-     program with `mesh_shape` 2 and 4, on cuda and on cpu, "u64" and "auto", every rank's proof equal to step
-     5's single-device proof, one verified; mesh_prove: the 2^15-cycle
-     counter (FRI 2^21) on 2 ranks, "u64" and "auto", a warm-up and a timed
-     prove each, bytes equal to step 6's, and per rank the stage times, the
-     bytes and seconds spent in collectives, peak device memory and
-     B1/B2/B3 launches (every rank must launch B1, and B2 and B3 under
-     "auto"). A worker that fails makes the script exit non-zero;
+     program with `mesh_shape` 2 and 4, on cuda and on cpu, every rank's
+     proof equal to step 5's single-device proof, one verified;
+     mesh_prove: the 2^15-cycle counter (FRI 2^21) on 2 ranks, bytes equal
+     to step 6's, and per rank the collectives, peak device memory and the
+     launches (every rank must launch B1, B2 and B3, F4 once and F5 once a
+     device fold round). A worker that fails makes the script exit
+     non-zero;
   10. the card's name and power limit, then the kernels line;
   11. last line: {"ok": true, "device": {...}}.
 
@@ -177,16 +155,7 @@ one each and the mesh runs on nccl. `--b2-sweep` and `--b2-parts` are
 measuring aids for kernel B2: after the
 build they time it under several tile shapes, or with its arithmetic or
 its memory traffic cut out of the source, print one JSON line each and
-stop before the checks. `--turns PARENT_DIR` compares this tree with
-another checkout of the repo (its parent commit) on the same card: the
-quotient_kernel phase, step 6's full_proves and the 2^16-cycle prove in
-32 classes, run by each tree's own chip_smoke.py in a process of its own,
-in turns parent, this tree, this tree, parent; every JSON line is printed
-with its turn and tree, and nothing else runs. `--stream-log2-cycles K` is the same kind of aid
-for the streamed prover: after the build it proves a counter of 2^K cycles
-(FRI 2^(K+6)) with 32 classes on both NTT paths, holds the two proofs equal
-and verified and the B2/B3 launches to the class transforms, prints one
-stream_prove line each and stops.
+stop before the checks.
 
 Every bound is the larger of the bytes over HBM bandwidth and each
 integer pipe's fewest instructions over its issue rate (`bound`, `Ops`).
@@ -290,10 +259,10 @@ CELL_INVERSE = tuple((rows, logn) for logn in (15, 16, 20, 21)
 CELL_PLAIN_ROWS = 8
 
 # the streamed prove: 2^16 cycles, FRI 2^22 = the default stream_min, in the
-# default 32 classes (S = 2^17) and in 2 (S = 2^21)
+# default 32 classes (S = 2^17)
 STREAM_LOG2_CYCLES = 16
-STREAM_CLASSES = (32, 2)
-STREAM_S = (1 << (STREAM_LOG2_CYCLES + 6)) // STREAM_CLASSES[0]
+STREAM_CLASSES = 32
+STREAM_S = (1 << (STREAM_LOG2_CYCLES + 6)) // STREAM_CLASSES
 
 # native_host: counters recorded by the C++ recorder (the first also by the
 # python one), and host trees of 104-byte leaves; the tree engine is also
@@ -598,11 +567,10 @@ def check_b2_every_size():
 
 def check_ntt_kernels():
     """B2 and B3 against their plain versions at the full-size prove's
-    four-step shapes, then the composed transform against the u64
-    network. Returns (b2 rows, b3 rows)."""
+    four-step shapes (`cell_ntt` holds the composed transform to the
+    radix-2 network). Returns (b2 rows, b3 rows)."""
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
-    from stark_brainfuck_tpu_torch.ops import ntt as nt
 
     n = 1 << LOG2_FRI
     omega = f.primitive_nth_root(n)
@@ -665,39 +633,18 @@ def check_ntt_kernels():
         emit("b3_check", **row)
         b3.append(row)
         del y
-    pack = nt.make_pack(n, omega, False, "cuda")
-    for stage, k in NTT_ROWS.items():
-        seed += 1
-        v = random_field(k, n, seed)
-        got = K.ntt_kernel(v, plan)
-        want = nt.ntt_with(v, pack)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        assert err == 0.0, f"ntt_kernel differs from the u64 network at {(k, n)}"
-        del got, want
-        kernel_ms = cuda_ms(lambda: K.ntt_kernel(v, plan), reps=20)
-        u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=5)
-        # the least the transform can move: no 2^21-point row fits an SM,
-        # so the block of rows is read and written twice
-        bound_ms, _ = bound(2 * 16 * k * n, Ops())
-        emit("ntt_full", stage=stage, rows=k, n=n, r=plan.r, c=plan.c,
-             max_abs_err=err, kernel_ms=kernel_ms, u64_ms=u64_ms,
-             bound_ms=bound_ms)
-        del v
     return b2, b3
 
 
 def cell_ntt(smi):
-    """`ntt_kernel` against the u64 network and against the plain radix-2
-    network (`ntt_with(..., plain=True)`, CELL_PLAIN_ROWS rows at a time)
-    at the batches the benchmark's cells run it at (CELL_FORWARD,
-    CELL_INVERSE), exactly, with CUDA-event times of the kernel and the u64
-    network and the transform's bound (the block of rows read and written
-    twice). The largest batch, 8 x 27 rows of 2^21 words, puts B2's
-    offsets past 2^28 words."""
+    """`ntt_kernel` against the plain radix-2 network (`network_ntt`,
+    CELL_PLAIN_ROWS rows at a time) at the batches the benchmark's cells
+    run it at (CELL_FORWARD, CELL_INVERSE), exactly, with the kernel's
+    CUDA-event time and the transform's bound (the block of rows read and
+    written twice). The largest batch, 8 x 27 rows of 2^21 words, puts
+    B2's offsets past 2^28 words."""
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
-    from stark_brainfuck_tpu_torch.ops import ntt as nt
 
     seed = 400
     for inverse, cases in ((False, CELL_FORWARD), (True, CELL_INVERSE)):
@@ -705,30 +652,23 @@ def cell_ntt(smi):
             n = 1 << logn
             root = f.primitive_nth_root(n)
             plan = K.make_kernel_plan(n, root, inverse, "cuda")
-            pack = nt.make_pack(n, root, inverse, "cuda")
-            radix2 = nt._make_small_pack(n, root, inverse, "cuda")
+            radix2 = K.make_network_pack(n, root, inverse, "cuda")
             seed += 1
             v = random_field(rows, n, seed)
             got = K.ntt_kernel(v, plan)
-            want = nt.ntt_with(v, pack)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (
-                f"ntt_kernel differs from the u64 network at {(rows, n)}")
-            del want
             for i in range(0, rows, CELL_PLAIN_ROWS):
                 part = slice(i, i + CELL_PLAIN_ROWS)
-                plain = nt.ntt_with(v[part], radix2, plain=True)
+                plain = K.network_ntt(v[part], radix2)
                 assert torch.equal(got[part], plain), (
                     f"ntt_kernel differs from the plain network at "
                     f"{(rows, n)}, rows {i}..")
                 del plain
             del got, radix2
             kernel_ms = cuda_ms(lambda: K.ntt_kernel(v, plan), reps=10)
-            u64_ms = cuda_ms(lambda: nt.ntt_with(v, pack), reps=3)
             bound_ms, _ = bound(2 * 16 * rows * n, Ops())
             emit("cell_ntt", inverse=inverse, rows=rows, n=n, r=plan.r,
-                 c=plan.c, words=rows * n, equal=True, equal_plain=True,
-                 kernel_ms=kernel_ms, u64_ms=u64_ms, bound_ms=bound_ms,
+                 c=plan.c, words=rows * n, equal_plain=True,
+                 kernel_ms=kernel_ms, bound_ms=bound_ms,
                  kernel_ps_per_word=kernel_ms * 1e9 / (rows * n),
                  nvidia_smi=smi)
             del v
@@ -769,8 +709,8 @@ ACC_POSITION_OPS = 3 * ACC_REDUCE_OPS + 3 * GL_ADD_OPS
 # (NVIDIA H100 80GB HBM3, 700.00 W; `graph_ms`): {group: ms}
 F3_BASELINE_MS = {"quotients": 1.2709, "base": 0.5817, "ext": 0.5554,
                   "streamed ext": 0.0891}
-# the u64 network's stage whose twiddle broadcast F1 is timed at: blocks of
-# 2^11 words, the odd half times tw[None, None, :]
+# the radix-2 network stage whose twiddle broadcast F1 is timed at: blocks
+# of 2^11 words, the odd half times tw[None, None, :]
 F1_TWIDDLE_LOG2_BLOCK = 11
 
 
@@ -858,8 +798,8 @@ def field_case(kernel, run, run_plain, nbytes, ops, timed=None, reps=20,
 def field_kernels():
     """F1, F2 and F3 against their plain versions on the card, exactly, at
     the full-size prove's shapes (FRI 2^21) and on edge values. F1: add,
-    sub and mul of two 2^21-word codewords, the u64 network's twiddle
-    broadcast, every pair of edge words. F2: mul of (2^21, 3) extension
+    sub and mul of two 2^21-word codewords, a radix-2 network stage's
+    twiddle broadcast, every pair of edge words. F2: mul of (2^21, 3) extension
     codewords, contiguous and in the strided layout of the extension LDE's
     columns (`movedim`), mul_base, every pair of edge elements. F3
     (`f3_case`): every group of the prove (`acc_stacks`) resident at N =
@@ -1127,8 +1067,7 @@ def quotient_kernel(src, smi):
     parent's form on the same operands, timed alone (`graph_ms`): F3 on
     each table's quotient stack (made op by op, untimed) and the
     permutation stack op by op (2 F1, 2 F2, torch.stack) with its F3
-    launch; the parent's per-table F4 launches are its own run's
-    quotient_kernel "all five" rows. Returns the rows."""
+    launch. Returns the rows."""
     from stark_brainfuck_tpu_torch.ops import field as F
     from stark_brainfuck_tpu_torch.ops import quotient_kernels as QK
     from stark_brainfuck_tpu_torch.ops import xfield as X
@@ -1316,15 +1255,6 @@ def device_rounds(bfs):
 def check_fri(counts, bfs, where):
     """F5 launched once a device fold round of the prove, and no more."""
     assert counts["f5"] == len(device_rounds(bfs)), (where, counts)
-
-
-def fri_split(bfs):
-    """`fri_round_s` of the last prove summed over its device rounds (the
-    first ones) and over its host rounds."""
-    rounds = bfs.last_metrics["fri_round_s"]
-    d = len(device_rounds(bfs))
-    return {"fri_device_rounds": d, "fri_device_s": sum(rounds[:d]),
-            "fri_host_rounds": len(rounds) - d, "fri_host_s": sum(rounds[d:])}
 
 
 def geometric_launches(count: int) -> int:
@@ -1826,58 +1756,6 @@ def make_stark(src: str, seed: int, device, trace=None, **config):
     return bfs, args
 
 
-def profile_prove(bfs, args, out_dir):
-    """One prove under torch.profiler: device time by kernel name, the
-    device's busy share of the wall time, and B1's and F1-F5's device time;
-    the full table goes to out_dir/profile_prove.txt."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        bfs.prove(*args)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    # device-side events only (kernels, copies): the aten:: rows carry the
-    # same device time again, attributed to their launching op
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    device_s = sum(e.self_device_time_total for e in events) / 1e6
-    b1_s = sum(e.self_device_time_total for e in events
-               if "blake2b" in e.key) / 1e6
-    field_s = {name: sum(e.self_device_time_total for e in events
-                         if name in e.key) / 1e6
-               for name in ("gl_binary_kernel", "xf_binary_kernel",
-                            "acc_group_kernel", "acc_powers_kernel",
-                            "quotients_kernel", "quotients_prologue_kernel",
-                            "fri_fold_kernel")}
-    # the copies of torch.cat (CatArrayBatchedCopy kernels)
-    cat_s = sum(e.self_device_time_total for e in events
-                if "CatArray" in e.key) / 1e6
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_prove.txt"), "w") as fh:
-        fh.write(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=60))
-    emit("profile", wall_s=wall, device_busy_s=device_s,
-         device_busy_share=device_s / wall, b1_device_s=b1_s,
-         field_kernels_device_s=field_s, cat_copies_device_s=cat_s,
-         top=[{"kernel": e.key[:80], "calls": e.count,
-               "device_s": e.self_device_time_total / 1e6}
-              for e in events[:12]])
-
-
-# the work counts and rates of `last_metrics` that the JAX prover reports
-RATE_KEYS = ("ntt_butterflies", "ntt_butterflies_per_s", "hash_leaves",
-             "hash_leaves_per_s", "extend_rows_per_s")
-
-
-def rates(bfs):
-    return {k: bfs.last_metrics[k] for k in RATE_KEYS}
-
-
 def reset_counts():
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field_kernels as FK
@@ -1918,9 +1796,10 @@ def read_counts():
 def check_f4(counts, evaluations: int, where):
     """F4 launched once for each evaluation of the quotient combination
     (one a resident prove, one a class streamed), each after its prologue,
-    and F1-F3 launched."""
+    F3 each after its power tables, and F1-F3 launched."""
     assert counts["f4"] == counts["f4_prologue"] == evaluations, (
         where, evaluations, counts)
+    assert counts["f3_powers"] == counts["f3"], (where, counts)
     assert min(counts[k] for k in ("f1", "f2", "f3")) > 0, (where, counts)
 
 
@@ -1933,9 +1812,9 @@ def transform_launches(n: int):
 
 
 def intt_launches(bfs):
-    """(B2, B3) launches of the tables' INTTs of one prove on a four-step
-    path: every table of height 2 and up is interpolated twice (its base
-    columns, then its extension columns), on the network below 2."""
+    """(B2, B3) launches of the tables' INTTs of one prove: every table of
+    height 2 and up is interpolated twice (its base columns, then its
+    extension columns); a one-point transform launches nothing."""
     b2 = b3 = 0
     for t in bfs.tables:
         if t.height >= 2:
@@ -1946,9 +1825,7 @@ def intt_launches(bfs):
 
 def ntt_launches(bfs, forward: int, n: int):
     """(B2, B3) launches of one prove: `forward` n-point transforms and the
-    tables' INTTs on the four-step paths, none on the u64 network."""
-    if bfs.last_metrics["ntt_path"].endswith("u64-torch"):
-        return 0, 0
+    tables' INTTs."""
     l2, l3 = transform_launches(n)
     i2, i3 = intt_launches(bfs)
     return forward * l2 + i2, forward * l3 + i3
@@ -1957,39 +1834,6 @@ def ntt_launches(bfs, forward: int, n: int):
 def b_counts(counts):
     """The B1, B2 and B3 launches of a read_counts() dict."""
     return {k: counts[k] for k in ("b1", "b2", "b3")}
-
-
-# stage_c of the resident prove before F3's redesign (PERF.md; NVIDIA H100
-# 80GB HBM3, 700.00 W), for the full-size prove's line to stand beside
-STAGE_C = "stage_c (quotients+combination)"
-BASELINE_FULL_PROVE = {"f3_launches": 8, "stage_c_s": [0.0427, 0.0574],
-                       "peak_bytes_at_stage_c": 4553993728}
-# the 2^16-cycle prove before the streamed classes were grouped, one class
-# a dispatch (PERF.md, PR 9 call 8; NVIDIA H100 80GB HBM3, 700.00 W):
-# {(classes, NTT backend): ...}, the merkle time the sum of the base and
-# extension commitments; the "auto" rows were measured under "mxu", the
-# four-step route that "auto" takes on the card
-BASELINE_STREAM = {
-    (32, "u64"): {"group": 1, "prove_s": 2.5802, "merkle_s": 0.364,
-                   "reopen_s": 0.408, "stage_c_s": 1.4049,
-                   "max_memory_allocated": 1671442432,
-                   "b1": 297, "b2": 0, "b3": 0},
-    (32, "auto"): {"group": 1, "prove_s": 1.9687, "merkle_s": 0.256,
-                  "reopen_s": 0.233, "stage_c_s": 1.0923,
-                  "max_memory_allocated": 1673028608,
-                  "b1": 297, "b2": 384, "b3": 192},
-    (2, "u64"): {"group": 1, "prove_s": 1.1727, "merkle_s": 0.170,
-                  "reopen_s": 0.115, "stage_c_s": 0.2239,
-                  "max_memory_allocated": 5088794112,
-                  "b1": 125, "b2": 0, "b3": 0},
-    (2, "auto"): {"group": 1, "prove_s": 0.6328, "merkle_s": 0.033,
-                 "reopen_s": 0.043, "stage_c_s": 0.1498,
-                 "max_memory_allocated": 4343410688,
-                 "b1": 125, "b2": 24, "b3": 12},
-}
-MERKLE_STAGES = ("base merkle (streamed)", "ext merkle (streamed)",
-                 "base merkle (device)", "ext merkle (device)")
-REOPEN_STAGE = "reopen (streamed 2nd pass)"
 
 
 def class_transforms(B: int, G: int) -> int:
@@ -2010,145 +1854,92 @@ def streamed_b1(resident_b1: int, B: int, G: int) -> int:
     return resident_b1 + 2 * ((B // G) * (3 + log_g) - 3 - log_b)
 
 
-def stage_c(bfs, counts):
-    """A prove's F3 and F4 launches (and F3's power tables', F4's
-    prologues), stage_c seconds and peak device bytes at stage_c's mark."""
-    m = bfs.last_metrics
-    assert counts["f3_powers"] == counts["f3"], counts
-    assert counts["f4_prologue"] == counts["f4"], counts
-    assert m["quotient_launches"] == counts["f4"], (m, counts)
-    return {"f3_launches": counts["f3"], "f4_launches": counts["f4"],
-            "f3_power_launches": counts["f3_powers"],
-            "f4_prologue_launches": counts["f4_prologue"],
-            "stage_c_s": m["stages_s"].get(STAGE_C),
-            "peak_bytes_at_stage_c": m.get("peak_bytes_at_mark", {}).get(
-                STAGE_C)}
-
-
 def full_proves(src, smi):
-    """The full-size prove on the default and the u64 NTT path, on the
-    default path with the quotient combination op by op
-    (`plain_quotients`, the baseline of F4), and on the default path with
-    every fold op by op (`plain_fold`, the baseline of F5 and of the host
-    fold): a warm-up prove and verify for each, then two timed proves each,
-    in turns (default, u64, plain quotients, plain fold, plain fold, plain
-    quotients, u64, default) so they are compared on the same card in the
-    same state. Launch counts are set to 0 just before each timed prove and
-    read just after it; stage times, the FRI rounds' device and host sums
-    (`fri_split`) and peak bytes are kept per prove. Every proof must equal
-    the default path's warm-up bytes; F4 launches once a prove and F5
-    once a device fold round (`check_fri`: 8 at FRI 2^21); each baseline
-    launches none of its kernel and exactly `quotient_dispatches` or
-    `fold_dispatches` more F1 and F2 kernels. Returns ({path: (stark,
-    args)}, {path: launch counts per prove}, the proof)."""
-    paths = {"full_prove": {}, "full_prove_u64": {"ntt_backend": "u64"},
-             "full_prove_plain_quotients": {}, "full_prove_plain_fold": {}}
-    starks, warm, runs = {}, {}, {p: [] for p in paths}
-    proof = None
-
-    def prove(phase, bfs, args):
-        if phase != "full_prove_plain_fold":
-            return bfs.prove(*args)
-        with plain_fold():
-            return bfs.prove(*args)
-
-    for phase, config in paths.items():
-        bfs, args = make_stark(src, 0, "cuda", **config)
+    """The full-size prove, once on each path: the default, the quotient
+    combination op by op (`plain_quotients`, the baseline of F4) and every
+    fold op by op (`plain_fold`, the baseline of F5 and of the host fold).
+    Launch counts are set to 0 just before each prove and read just after
+    it. Every proof verifies and equals the default path's; the default
+    path launches B2/B3 for its two forward transforms and the tables'
+    INTTs, F4 once and F5 once a device fold round (`check_fri`: 8 at FRI
+    2^21); each baseline launches none of its kernel and exactly
+    `quotient_dispatches` or `fold_dispatches` more F1 and F2 kernels.
+    Returns (the default path's launch counts, the proof)."""
+    proof = base = None
+    for phase in ("full_prove", "full_prove_plain_quotients",
+                  "full_prove_plain_fold"):
+        bfs, args = make_stark(src, 0, "cuda")
         if phase == "full_prove_plain_quotients":
             plain_quotients(bfs)
-        t0 = time.time()
-        got = prove(phase, bfs, args)
-        warm[phase] = time.time() - t0
+        reset_counts()
+        if phase == "full_prove_plain_fold":
+            with plain_fold():
+                got = bfs.prove(*args)
+        else:
+            got = bfs.prove(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
         assert bfs.verify(got), f"{phase}: proof failed to verify"
         proof = proof or got
         assert got == proof, f"{phase}: bytes differ from the default path"
-        starks[phase] = (bfs, args)
-    for phase in ("full_prove", "full_prove_u64",
-                  "full_prove_plain_quotients", "full_prove_plain_fold",
-                  "full_prove_plain_fold", "full_prove_plain_quotients",
-                  "full_prove_u64", "full_prove"):
-        bfs, args = starks[phase]
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        got = prove(phase, bfs, args)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = read_counts()
-        assert got == proof, f"{phase}: seeded proves differ"
         assert counts["b1"] > 0, f"{phase}: launched no B1 kernel"
-        # the first timed prove is the default path's
-        base = (runs["full_prove"] or [{"launches": counts}])[0]["launches"]
+        base = base or counts
+        extra = {}
         if phase == "full_prove_plain_quotients":
-            moved = quotient_dispatches(bfs)
+            moved = extra["quotient_dispatches_replaced"] = (
+                quotient_dispatches(bfs))
             assert counts == {**base, "f4": 0, "f4_prologue": 0,
                               "f1": base["f1"] + moved["f1"],
                               "f2": base["f2"] + moved["f2"]}, (
                 counts, base, moved)
         else:
             check_f4(counts, 1, phase)
+            assert bfs.last_metrics["quotient_launches"] == counts["f4"]
         if phase == "full_prove_plain_fold":
-            moved = fold_dispatches(bfs)
+            moved = extra["fold_dispatches_replaced"] = fold_dispatches(bfs)
+            extra["fri_device_rounds"] = device_rounds(bfs)
             assert counts == {**base, "f5": 0,
                               "f1": base["f1"] + moved["f1"],
                               "f2": base["f2"] + moved["f2"]}, (
                 counts, base, moved)
         else:
             check_fri(counts, bfs, phase)
-        runs[phase].append({
-            "prove_s": wall, "launches": counts, **stage_c(bfs, counts),
-            "stages_s": bfs.last_metrics["stages_s"],
-            "fri_prove_s": bfs.last_metrics["stages_s"].get("fri.prove"),
-            **fri_split(bfs),
-            "fri_round_s": bfs.last_metrics["fri_round_s"],
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "peak_bytes_at_mark": bfs.last_metrics["peak_bytes_at_mark"],
-            **rates(bfs),
-        })
-    for phase, (bfs, args) in starks.items():
-        rs = runs[phase]
-        cycles = int(args[0].shape[0])
-        extra = {}
-        if phase == "full_prove_plain_quotients":
-            extra = {"quotient_dispatches_replaced": quotient_dispatches(bfs)}
-        if phase == "full_prove_plain_fold":
-            extra = {"fold_dispatches_replaced": fold_dispatches(bfs),
-                     "fri_device_rounds": device_rounds(bfs)}
-        emit(phase, target_cycles=1 << LOG2_CYCLES, trace_cycles=cycles,
+        if phase == "full_prove":
+            assert (counts["b2"], counts["b3"]) == ntt_launches(
+                bfs, 2, 1 << LOG2_FRI), counts
+        emit(phase, target_cycles=1 << LOG2_CYCLES,
+             trace_cycles=int(args[0].shape[0]),
              fri_domain=bfs.fri.domain.length,
-             cycles_per_s=cycles / min(r["prove_s"] for r in rs),
-             prove_s=[r["prove_s"] for r in rs], warmup_prove_s=warm[phase],
              ntt_path=bfs.last_metrics["ntt_path"], proof_bytes=len(proof),
-             verified=True, identical_to_default=True, runs=rs,
-             baseline=BASELINE_FULL_PROVE, nvidia_smi=smi, **extra)
-    return (starks, {p: [r["launches"] for r in rs] for p, rs in runs.items()},
-            proof)
+             verified=True, identical_to_default=True, launches=counts,
+             nvidia_smi=smi, **extra)
+        del bfs, args
+    return base, proof
 
 
-def bytes_across_devices(phase, src, want=None, **config):
+def bytes_across_devices(src):
     """The same seeded proof on cuda and on cpu; both verify. Returns the
-    proof and the cuda prove's launch counts."""
-    bfs_gpu, args = make_stark(src, 7, "cuda", **config)
+    proof."""
+    bfs_gpu, args = make_stark(src, 7, "cuda")
     reset_counts()
     proof_gpu = bfs_gpu.prove(*args)
     counts = read_counts()
-    bfs_cpu, _ = make_stark(src, 7, "cpu", **config)
+    bfs_cpu, _ = make_stark(src, 7, "cpu")
     proof_cpu = bfs_cpu.prove(*args)
     assert bfs_gpu.fri.domain.length >= bfs_gpu.config.device_commit_min
-    assert proof_gpu == proof_cpu, f"{phase}: cuda and cpu proofs differ"
-    assert want is None or proof_gpu == want, f"{phase}: bytes differ"
-    check_f4(counts, 1, phase)
-    check_fri(counts, bfs_gpu, phase)
+    assert proof_gpu == proof_cpu, "bytes_across_devices: cuda and cpu differ"
+    check_f4(counts, 1, "bytes_across_devices")
+    check_fri(counts, bfs_gpu, "bytes_across_devices")
     assert bfs_gpu.verify(proof_gpu) and bfs_cpu.verify(proof_cpu)
-    assert counts["b1"] > 0, f"{phase}: device-commit prove launched no B1"
-    emit(phase, fri_domain=bfs_gpu.fri.domain.length,
+    assert counts["b1"] > 0, "device-commit prove launched no B1"
+    assert (counts["b2"], counts["b3"]) == ntt_launches(
+        bfs_gpu, 2, bfs_gpu.fri.domain.length), counts
+    emit("bytes_across_devices", fri_domain=bfs_gpu.fri.domain.length,
          proof_bytes=len(proof_gpu), identical=True, verified=True,
-         identical_to_default=want is not None,
          ntt_path=[bfs_gpu.last_metrics["ntt_path"],
                    bfs_cpu.last_metrics["ntt_path"]],
          launches=counts)
-    return proof_gpu, counts
+    return proof_gpu
 
 
 STREAM_SRC = "+" * 8 + "[->++++[-]<]"
@@ -2157,36 +1948,33 @@ STREAM_SMALL = {"stream_min": 1, "stream_classes": 4}
 
 def stream_bytes(want):
     """The N=16384 program down the streamed path (4 classes): cuda and cpu,
-    both NTT backends, every proof equal to the resident proof `want`."""
-    for backend in ("u64", "auto"):
-        config = {**STREAM_SMALL, "ntt_backend": backend}
-        bfs_gpu, args = make_stark(STREAM_SRC, 7, "cuda", **config)
-        reset_counts()
-        proof_gpu = bfs_gpu.prove(*args)
-        counts = read_counts()
-        bfs_cpu, _ = make_stark(STREAM_SRC, 7, "cpu", **config)
-        proof_cpu = bfs_cpu.prove(*args)
-        assert bfs_gpu.use_stream and bfs_cpu.use_stream
-        assert proof_gpu == proof_cpu, "stream_bytes: cuda and cpu differ"
-        assert proof_gpu == want, "stream_bytes: streamed and resident differ"
-        assert bfs_gpu.verify(proof_gpu), bfs_gpu.last_rejection
-        # S = 4096 is one sub-transform: a B2 launch and no B3 for each
-        # class transform (the 4 classes in one group)
-        m = bfs_gpu.last_metrics
-        assert m["stream_group"] == 4, m["stream_group"]
-        assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
-            ntt_launches(bfs_gpu, class_transforms(4, 4), m["stream_block"])
-        ), counts
-        check_f4(counts, m["stream_classes"], "stream_bytes")
-        check_fri(counts, bfs_gpu, "stream_bytes")
-        emit("stream_bytes", ntt_backend=backend,
-             fri_domain=bfs_gpu.fri.domain.length,
-             classes=m["stream_classes"], block=m["stream_block"],
-             group=m["stream_group"],
-             ntt_path=[bfs_gpu.last_metrics["ntt_path"],
-                       bfs_cpu.last_metrics["ntt_path"]],
-             identical=True, identical_to_resident=True, verified=True,
-             launches=counts)
+    both proofs equal to the resident proof `want`."""
+    bfs_gpu, args = make_stark(STREAM_SRC, 7, "cuda", **STREAM_SMALL)
+    reset_counts()
+    proof_gpu = bfs_gpu.prove(*args)
+    counts = read_counts()
+    bfs_cpu, _ = make_stark(STREAM_SRC, 7, "cpu", **STREAM_SMALL)
+    proof_cpu = bfs_cpu.prove(*args)
+    assert bfs_gpu.use_stream and bfs_cpu.use_stream
+    assert proof_gpu == proof_cpu, "stream_bytes: cuda and cpu differ"
+    assert proof_gpu == want, "stream_bytes: streamed and resident differ"
+    assert bfs_gpu.verify(proof_gpu), bfs_gpu.last_rejection
+    # S = 4096 is one sub-transform: a B2 launch and no B3 for each class
+    # transform (the 4 classes in one group)
+    m = bfs_gpu.last_metrics
+    assert m["stream_group"] == 4, m["stream_group"]
+    assert counts["b1"] > 0 and (counts["b2"], counts["b3"]) == (
+        ntt_launches(bfs_gpu, class_transforms(4, 4), m["stream_block"])
+    ), counts
+    check_f4(counts, m["stream_classes"], "stream_bytes")
+    check_fri(counts, bfs_gpu, "stream_bytes")
+    emit("stream_bytes", fri_domain=bfs_gpu.fri.domain.length,
+         classes=m["stream_classes"], block=m["stream_block"],
+         group=m["stream_group"],
+         ntt_path=[bfs_gpu.last_metrics["ntt_path"],
+                   bfs_cpu.last_metrics["ntt_path"]],
+         identical=True, identical_to_resident=True, verified=True,
+         launches=counts)
 
 
 def stream_checkpoint(want):
@@ -2223,18 +2011,18 @@ def stream_kernels():
     batch: the column pass, the row pass with its transposed store, and
     the outer twiddle, for G x 19 base and G x 27 extension rows. Then
     `block_values` (one class, as the combination evaluates it) on B2/B3
-    against the u64 network, and `group_values` (G classes, as the commit
-    passes and the reopen evaluate them) on B2/B3 and on the u64 network
-    against G one-class evaluations on the u64 network, for both groups.
-    Exact, or it raises."""
+    against its plain versions on CPU copies, and `group_values` (G
+    classes, as the commit
+    passes and the reopen evaluate them) against G one-class evaluations,
+    for both groups. Exact, or it raises."""
     from stark_brainfuck_tpu_torch.ops import blake2b as B
     from stark_brainfuck_tpu_torch.ops import field as f
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
     from stark_brainfuck_tpu_torch.protocol import stream
 
     S = STREAM_S
-    N = S * STREAM_CLASSES[0]
-    G = stream.group_size_for(STREAM_CLASSES[0], S)
+    N = S * STREAM_CLASSES
+    G = stream.group_size_for(STREAM_CLASSES, S)
     assert G == 8, G
     b1_cases = [(G * S, 32, 176, "leaf"), (G * S, 32, 240, "leaf"),
                 (G * S, 16, 24, "salt"), (G * S // 2, 16, 128, "group pair"),
@@ -2276,10 +2064,8 @@ def stream_kernels():
              bound_ms=bound_ms, bound_by=bound_by)
         del words, got, plain
     omega = f.primitive_nth_root(N)
-    plans = {kernel: stream.make_stream_plan(N, STREAM_CLASSES[0], omega,
-                                             "cuda", kernel_ntt=kernel)
-             for kernel in (False, True)}
-    plan = plans[True]["pack_S"]
+    splan = stream.make_stream_plan(N, STREAM_CLASSES, omega, "cuda")
+    plan = splan["pack_S"]
     assert (plan.n, plan.r, plan.c) == (S, 512, 256), (plan.r, plan.c)
     for stage, rows in NTT_ROWS.items():
         k = G * rows
@@ -2313,228 +2099,145 @@ def stream_kernels():
              plain_ms=cuda_ms(lambda: K.twiddle_outer_plain(y, plan), reps=3),
              bound_ms=bound_ms, bound_by=bound_by)
         del x, y
-    wbs = f.powers(omega, STREAM_CLASSES[0], "cuda")
+    wbs = f.powers(omega, STREAM_CLASSES, "cuda")
+    cpu_plan = stream.make_stream_plan(N, STREAM_CLASSES, omega, "cpu")
     b0 = G  # the second group: classes 8 .. 15
     for stage, rows in NTT_ROWS.items():
         # the prove's groups: 3 randomizer rows of N/4 coefficients, the
         # rest table columns of height + 1 (one randomizer)
         groups = (random_field(3, N // 4, 60 + rows),
                   random_field(rows - 3, (N >> 6) + 1, 61 + rows))
-        one = {kernel: (lambda plan=plan: stream.block_values(
-            groups, wbs[b0 : b0 + 1], N // 4, plan["pack_S"], S))
-            for kernel, plan in plans.items()}
-        grouped = {kernel: (lambda plan=plan: stream.group_values(
-            groups, wbs[b0 : b0 + G], N // 4, plan["pack_S"], S))
-            for kernel, plan in plans.items()}
-        per_class = lambda plan: [stream.block_values(
-            groups, wbs[b0 + j : b0 + j + 1], N // 4, plan["pack_S"], S)
+        one = lambda: stream.block_values(
+            groups, wbs[b0 : b0 + 1], N // 4, plan, S)
+        grouped = lambda: stream.group_values(
+            groups, wbs[b0 : b0 + G], N // 4, plan, S)
+        per_class = lambda: [stream.block_values(
+            groups, wbs[b0 + j : b0 + j + 1], N // 4, plan, S)
             for j in range(G)]
         reset_counts()
-        got = one[True]()
+        got = one()
         counts = read_counts()
-        want = one[False]()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+        want = stream.block_values(
+            [g.cpu() for g in groups], wbs[b0 : b0 + 1].cpu(), N // 4,
+            cpu_plan["pack_S"], S)
+        err = max_abs_err(got.cpu(), want)
         assert err == 0.0, f"block_values on B2/B3 differs at {(rows, S)}"
         assert (counts["b2"], counts["b3"]) == (2, 1), counts
         reset_counts()
-        got = grouped[True]()
+        got = grouped()
         counts = read_counts()
         assert (counts["b2"], counts["b3"]) == (2, 1), counts
-        want = torch.stack(per_class(plans[False]))
-        got_u64 = grouped[False]()
+        want = torch.stack(per_class())
         torch.cuda.synchronize()
-        group_err = max(max_abs_err(v.reshape(-1, S), want.reshape(-1, S))
-                        for v in (got, got_u64))
+        group_err = max_abs_err(got.reshape(-1, S), want.reshape(-1, S))
         assert group_err == 0.0, (
             f"group_values differs from per-class values at {(G, rows, S)}")
-        del got, want, got_u64
-        # the class transform alone (B2, B3, B2 against the u64 network):
-        # the rest of `block_values` is the scale row and the fold
+        del got, want
+        # the class transform alone (B2, B3, B2): the rest of
+        # `block_values` is the scale row and the fold
         folded = random_field(rows, S, 62 + rows)
         emit("stream_kernels", kernel="block_values", stage=stage, rows=rows,
              S=S, r=plan.r, c=plan.c, max_abs_err=err,
-             kernel_ms=cuda_ms(one[True], reps=10),
-             u64_ms=cuda_ms(one[False], reps=3),
+             kernel_ms=cuda_ms(one, reps=10),
              transform_kernel_ms=cuda_ms(
-                 lambda: K.forward_ntt(folded, plan), reps=20),
-             transform_u64_ms=cuda_ms(
-                 lambda: K.forward_ntt(folded, plans[False]["pack_S"]),
-                 reps=3))
+                 lambda: K.ntt_kernel(folded, plan), reps=20))
         emit("stream_kernels", kernel="group_values", stage=stage, rows=rows,
              S=S, group=G, max_abs_err=group_err,
-             kernel_ms=cuda_ms(grouped[True], reps=10),
-             per_class_kernel_ms=cuda_ms(
-                 lambda: per_class(plans[True]), reps=5),
-             u64_ms=cuda_ms(grouped[False], reps=3),
-             per_class_u64_ms=cuda_ms(
-                 lambda: per_class(plans[False]), reps=3))
+             kernel_ms=cuda_ms(grouped, reps=10),
+             per_class_kernel_ms=cuda_ms(per_class, reps=5))
         del groups, folded
 
 
-def stream_plans(classes, backends=("u64", "auto")):
-    """(kind, config) of a streamed prove for each class count and NTT
-    backend."""
-    return [("streamed", {"stream_classes": B, "ntt_backend": nb})
-            for B in classes for nb in backends]
-
-
-def stream_proves(log2_cycles, smi, plans):
-    """A counter of 2^log2_cycles cycles proved once for each (kind, config)
-    of `plans`: "streamed", "resident" (the same claim with `stream_min`
-    raised past its domain), or "streamed_plain_quotients" (streamed, the
-    quotient combination op by op: F4's baseline, held to exactly
-    `quotient_dispatches` more F1/F2 launches than the first streamed prove
-    of its classes and backend, and no F4).
-    Each with the launch counts set to 0 just before it and read just
-    after, stage times and peak bytes. All proofs must be equal and the
-    first must verify. A streamed prove launches B2 and B3 twice and once
-    for each class transform, and as the tables' INTTs give, on the
-    four-step path (none on the u64 network) and,
-    after a resident prove of the claim, exactly `streamed_b1` B1 kernels.
-    Returns the runs."""
+def stream_launches():
+    """A counter of 2^STREAM_LOG2_CYCLES cycles (FRI 2^22) proved resident
+    (`stream_min` raised past its domain) and down the streamed path in
+    STREAM_CLASSES classes, launch counts set to 0 just before each
+    prove and read just after it: the same bytes, the resident proof
+    verified; the streamed prove launches B2 and B3 twice and once for
+    each class transform and as the tables' INTTs give, exactly
+    `streamed_b1` B1 kernels, F4 once a class and F5 once a device fold
+    round (9). Returns the streamed prove's counts."""
     from stark_brainfuck_tpu_torch import VirtualMachine
     from stark_brainfuck_tpu_torch.protocol import stream
 
-    src = counter_program(1 << log2_cycles)
+    src = counter_program(1 << STREAM_LOG2_CYCLES)
     trace = VirtualMachine.simulate(VirtualMachine.compile(src))
-    cycles = int(trace["processor"].shape[0])
-    proof, runs, resident_b1 = None, [], None
-    for kind, config in plans:
-        if kind == "resident":
-            config = {**config, "stream_min": 1 << (log2_cycles + 7)}
+    proof, counts = None, {}
+    for kind, config in (
+            ("resident", {"stream_min": 1 << (STREAM_LOG2_CYCLES + 7)}),
+            ("streamed", {"stream_classes": STREAM_CLASSES})):
         bfs, args = make_stark(src, 0, "cuda", trace=trace, **config)
-        if kind == "streamed_plain_quotients":
-            plain_quotients(bfs)
-        assert bfs.use_stream == (kind != "resident"), (kind, config)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        assert bfs.use_stream == (kind == "streamed"), kind
         reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
         got = bfs.prove(*args)
         torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = read_counts()
+        counts[kind] = c = read_counts()
         if proof is None:
             proof = got
-            assert bfs.verify(got), f"stream_prove: {bfs.last_rejection}"
-        assert got == proof, f"stream_prove: bytes differ at {(kind, config)}"
+            assert bfs.verify(got), f"stream_launches: {bfs.last_rejection}"
+        assert got == proof, "stream_launches: streamed and resident differ"
         m = bfs.last_metrics
-        backend = config.get("ntt_backend", "auto")
-        B, S, G = m["stream_classes"], m["stream_block"], m["stream_group"]
-        if kind == "streamed_plain_quotients":
-            f4_run = next(r["launches"] for r in runs
-                          if r["kind"] == "streamed" and r["classes"] == B
-                          and r["ntt_path"] == m["ntt_path"])
-            moved = quotient_dispatches(bfs, B)
-            assert counts == {**f4_run, "f4": 0, "f4_prologue": 0,
-                              "f1": f4_run["f1"] + moved["f1"],
-                              "f2": f4_run["f2"] + moved["f2"]}, (
-                counts, f4_run, moved)
+        assert m["fri_domain"] == 1 << 22, m["fri_domain"]
+        check_fri(c, bfs, ("stream_launches", kind))
+        assert c["f5"] == 9, c
+        if kind == "resident":
+            check_f4(c, 1, ("stream_launches", kind))
+            assert (c["b2"], c["b3"]) == ntt_launches(
+                bfs, 2, m["fri_domain"]), c
         else:
-            check_f4(counts, B if kind == "streamed" else 1,
-                     ("stream_prove", kind, config))
-        check_fri(counts, bfs, ("stream_prove", kind, config))
-        if kind != "resident":
+            B, S, G = m["stream_classes"], m["stream_block"], m["stream_group"]
+            assert (B, S, G) == (STREAM_CLASSES, STREAM_S, 8), (B, S, G)
             assert G == stream.group_size_for(B, S), (B, S, G)
-            assert (counts["b2"], counts["b3"]) == ntt_launches(
-                bfs, class_transforms(B, G), S), (B, G, counts)
-            if resident_b1 is not None:
-                assert counts["b1"] == streamed_b1(resident_b1, B, G), (
-                    B, G, resident_b1, counts)
-        else:
-            assert (counts["b2"], counts["b3"]) == ntt_launches(
-                bfs, 2, m["fri_domain"]), counts
-            resident_b1 = counts["b1"]
-        stages = m["stages_s"]
-        run = {"kind": kind, "ntt_backend": backend,
-               "ntt_path": m["ntt_path"], "classes": B, "block": S,
-               "group": G, "trace_cycles": cycles,
-               "fri_domain": m["fri_domain"], "prove_s": wall,
-               "cycles_per_s": cycles / wall, "launches": counts,
-               "merkle_s": sum(stages.get(k, 0.0) for k in MERKLE_STAGES),
-               "reopen_s": stages.get(REOPEN_STAGE),
-               "stages_s": stages, **stage_c(bfs, counts),
-               "fri_prove_s": stages.get("fri.prove"), **fri_split(bfs),
-               "fri_round_s": m["fri_round_s"],
-               "baseline_ungrouped": BASELINE_STREAM.get(
-                   (B if kind != "resident" else 1, backend))
-               if log2_cycles == STREAM_LOG2_CYCLES else None,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "peak_bytes_at_mark": m["peak_bytes_at_mark"], **rates(bfs),
-               "proof_bytes": len(got), "identical": True,
-               "verified": True, "nvidia_smi": smi}
-        emit("stream_prove", **run)
-        runs.append(run)
+            check_f4(c, B, ("stream_launches", kind))
+            assert (c["b2"], c["b3"]) == ntt_launches(
+                bfs, class_transforms(B, G), S), (B, G, c)
+            assert c["b1"] == streamed_b1(counts["resident"]["b1"], B, G), (
+                B, G, counts)
+        emit("stream_launches", kind=kind, fri_domain=m["fri_domain"],
+             classes=m["stream_classes"], block=m["stream_block"],
+             group=m["stream_group"], ntt_path=m["ntt_path"],
+             trace_cycles=int(args[0].shape[0]), proof_bytes=len(got),
+             identical=True, verified=True, launches=c)
         del bfs, args, got
-    return runs
+    return counts["streamed"]
 
-
-# ---------------------------------------------------------------------------
-# the reference codec, the DEBUG degree checks, other soundness parameters
-# ---------------------------------------------------------------------------
 
 GOLDEN_REF_PROOF = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "tests", "vectors",
     "ref_proof_plus4.bin")
-REF_PROVE_LOG2_CYCLES = 10  # FRI 2^16 under the reference codec
-# the most the FRI last codeword (2 x expansion values) allows at expansion
-# 16: 32 colinearity checks; security level 160 needs expansion 32
 SOUNDNESS = {"security_level": 128, "log_expansion_factor": 4}
 SOUNDNESS_SRC = "++++[->++<]"  # FRI 2^14 at SOUNDNESS
 SOUNDNESS_LOG2_CYCLES = 13  # FRI 2^21 at SOUNDNESS, resident
 
 
-def timed_prove(bfs, args):
-    """One prove on the card with the launch counts set to 0 just before
-    it and read just after. Returns (proof, seconds, counts)."""
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    proof = bfs.prove(*args)
-    torch.cuda.synchronize()
-    return proof, time.time() - t0, read_counts()
-
-
 def ref_codec_bytes(native_proof):
-    """The N=16384 program under `codec="ref"`: the same bytes on cuda on
-    both NTT paths and on cpu (one prove: the bytes do not depend on the
-    path); every proof verifies; the card ran B1 for the salt and
-    randomizer PRFs (the trees are hashlib host trees over pickled leaves)
-    and B2/B3 under "auto"; the bytes differ from the native proof. Returns
-    the launches of the "auto" prove, the card's default route."""
-    proof, launches = None, {}
-    for backend in ("u64", "auto"):
-        bfs, args = make_stark(STREAM_SRC, 7, "cuda", codec="ref",
-                               ntt_backend=backend)
-        got, wall, counts = timed_prove(bfs, args)
-        proof = proof or got
-        if backend == "auto":
-            launches = counts
-        assert got == proof, "ref_codec_bytes: the NTT paths differ"
-        assert got != native_proof, "ref_codec_bytes: equals the native proof"
-        assert bfs.verify(got), bfs.last_rejection
-        assert counts["b1"] > 0, counts
-        check_f4(counts, 1, "ref_codec_bytes")
-        check_fri(counts, bfs, "ref_codec_bytes")
-        assert (min(counts["b2"], counts["b3"]) > 0) == (backend == "auto")
-        emit("ref_codec_bytes", device="cuda", ntt_backend=backend,
-             fri_domain=bfs.fri.domain.length, proof_bytes=len(got),
-             prove_s=wall, launches=counts, verified=True,
-             ntt_path=bfs.last_metrics["ntt_path"],
-             hash_path=bfs.last_metrics["hash_path"],
-             stages_s=bfs.last_metrics["stages_s"])
+    """The N=16384 program under `codec="ref"`: the same bytes on cuda and
+    on cpu; both verify; the card ran B1 for the salt and randomizer PRFs
+    (the trees are hashlib host trees over pickled leaves) and B2/B3 for
+    the LDE; the bytes differ from the native proof. Returns the card's
+    launches."""
+    bfs, args = make_stark(STREAM_SRC, 7, "cuda", codec="ref")
+    reset_counts()
+    proof = bfs.prove(*args)
+    counts = read_counts()
+    assert proof != native_proof, "ref_codec_bytes: equals the native proof"
+    assert bfs.verify(proof), bfs.last_rejection
+    assert counts["b1"] > 0, counts
+    check_f4(counts, 1, "ref_codec_bytes")
+    check_fri(counts, bfs, "ref_codec_bytes")
+    assert (counts["b2"], counts["b3"]) == ntt_launches(
+        bfs, 2, bfs.fri.domain.length), counts
+    emit("ref_codec_bytes", device="cuda", fri_domain=bfs.fri.domain.length,
+         proof_bytes=len(proof), launches=counts, verified=True,
+         ntt_path=bfs.last_metrics["ntt_path"],
+         hash_path=bfs.last_metrics["hash_path"])
     bfs, args = make_stark(STREAM_SRC, 7, "cpu", codec="ref")
-    t0 = time.time()
     got = bfs.prove(*args)
-    wall = time.time() - t0
     assert got == proof, "ref_codec_bytes: cuda and cpu proofs differ"
     assert bfs.verify(got), bfs.last_rejection
     emit("ref_codec_bytes", device="cpu", fri_domain=bfs.fri.domain.length,
-         proof_bytes=len(got), prove_s=wall, identical=True, verified=True)
-    return launches
+         proof_bytes=len(got), identical=True, verified=True)
+    return counts
 
 
 def ref_codec_golden():
@@ -2559,41 +2262,19 @@ def ref_codec_golden():
          tampered_rejected=True, rejection=bfs.last_rejection)
 
 
-def ref_codec_prove(smi):
-    """A counter of about 2^10 cycles (FRI 2^16) under the reference codec:
-    one timed prove and its verify, with the stage times (the host's share
-    is the pickling and hashing of the three trees and FRI's rounds)."""
-    src = counter_program(1 << REF_PROVE_LOG2_CYCLES)
-    bfs, args = make_stark(src, 0, "cuda", codec="ref")
-    proof, wall, counts = timed_prove(bfs, args)
-    t0 = time.time()
-    assert bfs.verify(proof), bfs.last_rejection
-    verify_s = time.time() - t0
-    assert counts["b1"] > 0, counts
-    check_f4(counts, 1, "ref_codec_prove")
-    check_fri(counts, bfs, "ref_codec_prove")
-    m = bfs.last_metrics
-    emit("ref_codec_prove", trace_cycles=int(args[0].shape[0]),
-         fri_domain=m["fri_domain"], proof_bytes=len(proof), prove_s=wall,
-         verify_s=verify_s, launches=counts, stages_s=m["stages_s"],
-         fri_round_s=m["fri_round_s"], **fri_split(bfs),
-         hash_path=m["hash_path"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         verified=True, nvidia_smi=smi)
-    return counts
-
-
 def debug_degrees(native_proof):
     """The N=16384 program with `debug_degree_checks=True` on the card:
     every quotient interpolated on the host and its degree checked; the
     bytes equal those of the prove with the checks off."""
     bfs, args = make_stark(STREAM_SRC, 7, "cuda", debug_degree_checks=True)
-    proof, wall, counts = timed_prove(bfs, args)
+    reset_counts()
+    proof = bfs.prove(*args)
+    counts = read_counts()
     assert proof == native_proof, "debug_degrees: bytes differ"
     check_f4(counts, 1, "debug_degrees")
     check_fri(counts, bfs, "debug_degrees")
     emit("debug_degrees", fri_domain=bfs.fri.domain.length,
-         proof_bytes=len(proof), prove_s=wall, launches=counts,
+         proof_bytes=len(proof), launches=counts,
          identical_to_unchecked=True)
 
 
@@ -2640,95 +2321,74 @@ def poly_toolbox():
 
 def soundness_params(smi):
     """Security level 128 at expansion 16 (32 colinearity checks, 128
-    query indices). A FRI-2^14 program: cuda equals cpu on both NTT paths.
-    Then a counter of 2^13 cycles (FRI 2^21, resident): one timed prove on
-    each NTT path, the same bytes, verified."""
+    query indices). A FRI-2^14 program: cuda equals cpu. Then a counter of
+    2^13 cycles (FRI 2^21, resident) on the card, verified, with its
+    launch counts."""
     proof = None
-    for device, backend in (("cuda", "u64"), ("cuda", "mxu"),
-                            ("cpu", "u64"), ("cpu", "mxu")):
-        bfs, args = make_stark(SOUNDNESS_SRC, 7, device, ntt_backend=backend,
-                               **SOUNDNESS)
+    for device in ("cuda", "cpu"):
+        bfs, args = make_stark(SOUNDNESS_SRC, 7, device, **SOUNDNESS)
         got = bfs.prove(*args)
         proof = proof or got
-        assert got == proof, f"soundness_params: {device} {backend} differ"
+        assert got == proof, "soundness_params: cuda and cpu differ"
     assert bfs.verify(proof), bfs.last_rejection
     emit("soundness_params", program=SOUNDNESS_SRC, **SOUNDNESS,
          colinearity_checks=bfs.fri.num_colinearity_tests,
          fri_domain=bfs.fri.domain.length, proof_bytes=len(proof),
          identical=True, verified=True)
     src = counter_program(1 << SOUNDNESS_LOG2_CYCLES)
-    proof = None
-    for backend in ("u64", "mxu"):
-        bfs, args = make_stark(src, 0, "cuda", ntt_backend=backend,
-                               **SOUNDNESS)
-        assert not bfs.use_stream
-        got, wall, counts = timed_prove(bfs, args)
-        proof = proof or got
-        assert got == proof, "soundness_params: the NTT paths differ"
-        t0 = time.time()
-        assert bfs.verify(got), bfs.last_rejection
-        verify_s = time.time() - t0
-        assert counts["b1"] > 0, counts
-        check_f4(counts, 1, "soundness_params")
-        check_fri(counts, bfs, "soundness_params")
-        m = bfs.last_metrics
-        cycles = int(args[0].shape[0])
-        emit("soundness_params", **SOUNDNESS, ntt_backend=backend,
-             ntt_path=m["ntt_path"], trace_cycles=cycles,
-             fri_domain=m["fri_domain"], prove_s=wall,
-             cycles_per_s=cycles / wall, verify_s=verify_s,
-             proof_bytes=len(got), launches=counts, stages_s=m["stages_s"],
-             **fri_split(bfs),
-             max_memory_allocated=torch.cuda.max_memory_allocated(),
-             identical=True, verified=True, nvidia_smi=smi)
-        del bfs, args
+    bfs, args = make_stark(src, 0, "cuda", **SOUNDNESS)
+    assert not bfs.use_stream
+    reset_counts()
+    proof = bfs.prove(*args)
+    counts = read_counts()
+    assert bfs.verify(proof), bfs.last_rejection
+    assert counts["b1"] > 0, counts
+    check_f4(counts, 1, "soundness_params")
+    check_fri(counts, bfs, "soundness_params")
+    m = bfs.last_metrics
+    emit("soundness_params", **SOUNDNESS, ntt_path=m["ntt_path"],
+         trace_cycles=int(args[0].shape[0]), fri_domain=m["fri_domain"],
+         proof_bytes=len(proof), launches=counts, verified=True,
+         nvidia_smi=smi)
 
-
-# ---------------------------------------------------------------------------
-# the sharded prover: what a rank (a worker process on the card) runs
-# ---------------------------------------------------------------------------
 
 MESH_DNTT_ROWS = NTT_ROWS["ext"]
 
 
 def rank_dntt(mesh, payload):
-    """`distributed_ntt_with` of (27, 2^21) seeded rows on both local
-    routes, each against the rank's block of the single-device u64
-    network; with the time of the torch copies left around the local DFTs
-    (the load of the rank's columns, and the packing and joining around the
-    two all-to-alls, from the mesh's own stats)."""
+    """`distributed_ntt_with` of (27, 2^21) seeded rows against the rank's
+    block of the single-device `ntt_kernel`; with the time of the torch
+    copies left around the local DFTs (the load of the rank's columns, and
+    the packing and joining around the two all-to-alls, from the mesh's
+    own stats)."""
     from stark_brainfuck_tpu_torch.ops import field as f
-    from stark_brainfuck_tpu_torch.ops import ntt as nt
+    from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
     from stark_brainfuck_tpu_torch.parallel import dntt
 
     n = 1 << LOG2_FRI
     root = f.primitive_nth_root(n)
     v = random_field(MESH_DNTT_ROWS, n, 77)
     lo, hi = mesh.block(n)
-    want = nt.ntt_with(v, nt.make_pack(n, root, False, "cuda"))
+    want = K.ntt_kernel(v, K.make_kernel_plan(n, root, False, "cuda"))
     want = want[:, lo:hi].contiguous()
-    out = {}
-    for route in ("u64", "kernel"):
-        tables = dntt.make_dntt_tables(n, root, mesh, kernel=route == "kernel")
-        torch.cuda.synchronize()
-        reset_counts()
-        mesh.reset_stats()
-        t0 = time.time()
-        got = dntt.distributed_ntt_with(v, tables, mesh)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        c_lo, c_hi = mesh.block(tables.C)
-        out[route] = {
-            "max_abs_err": max_abs_err(got, want), "seconds": seconds,
-            "launches": read_counts(), "block": list(got.shape),
-            "factors": [tables.R, tables.C],
-            "twiddle_on_b3": tables.twiddle_plan is not None,
-            **mesh.stats_report(),
-            "local_columns_ms": cuda_ms(lambda: dntt._local_columns(
-                [v], tables.R, tables.C, c_lo, c_hi - c_lo), reps=5),
-        }
-        del got, tables
-    return out
+    tables = dntt.make_dntt_tables(n, root, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    mesh.reset_stats()
+    t0 = time.time()
+    got = dntt.distributed_ntt_with(v, tables, mesh)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    c_lo, c_hi = mesh.block(tables.C)
+    return {
+        "max_abs_err": max_abs_err(got, want), "seconds": seconds,
+        "launches": read_counts(), "block": list(got.shape),
+        "factors": [tables.R, tables.C],
+        "twiddle_on_b3": tables.twiddle_plan is not None,
+        **mesh.stats_report(),
+        "local_columns_ms": cuda_ms(lambda: dntt._local_columns(
+            [v], tables.R, tables.C, c_lo, c_hi - c_lo), reps=5),
+    }
 
 
 def rank_kernels(mesh, payload):
@@ -2738,9 +2398,10 @@ def rank_kernels(mesh, payload):
     transform (`dntt._dft_middle`: the R-point one with its transposed
     store, the C-point one in place of layout) for the 19 base and the 27
     extension rows, against `subntt_tiled_plain` under the same strides and
-    against the u64 network. B3: the twiddle step with this rank's tables
-    (its column offset in the hi factor) against `twiddle_outer_plain` and
-    against the field multiply by the rank's plain table. B1: the block's
+    against the radix-2 network on the moved axis. B3: the twiddle step
+    with this rank's tables (its column offset in the hi factor) against
+    `twiddle_outer_plain` and against the field multiply by the rank's
+    plain columns (`dntt.twiddle_columns`). B1: the block's
     leaves, salts and tree levels against `blake2b_words_plain`. F4: the
     quotient combination of a mesh stark of payload["src"] on seeded
     columns, weights and progressions of the rank's block, through the
@@ -2759,11 +2420,12 @@ def rank_kernels(mesh, payload):
     n = 1 << LOG2_FRI
     D = mesh.world
     root = f.primitive_nth_root(n)
-    kern = dntt.make_dntt_tables(n, root, mesh, kernel=True)
-    u64 = dntt.make_dntt_tables(n, root, mesh)
-    assert kern.twiddle_plan is not None and u64.twiddle is not None
+    kern = dntt.make_dntt_tables(n, root, mesh)
+    assert kern.twiddle_plan is not None
     R, C = kern.R, kern.C
     cl, rd = C // D, R // D
+    lo, hi = mesh.block(C)
+    columns = dntt.twiddle_columns(root, lo, hi, R, "cuda")
     out = {"rank": mesh.rank, "factors": [R, C], "cases": []}
 
     def case(kernel, want, **at):
@@ -2772,9 +2434,9 @@ def rank_kernels(mesh, payload):
         out["cases"].append({"kernel": kernel, **at, "max_abs_err": 0.0})
 
     for stage, rows in NTT_ROWS.items():
-        for dft, m, v, pack_k, pack_u, transposed in (
-                ("rows", R, cl, kern.pack_r, u64.pack_r, True),
-                ("columns", C, rd, kern.pack_c, u64.pack_c, False)):
+        for dft, m, v, pack_k, transposed in (
+                ("rows", R, cl, kern.pack_r, True),
+                ("columns", C, rd, kern.pack_c, False)):
             x = random_field(rows * m, v, 80 + rows + m).view(rows, m, v)
             reset_counts()
             got = dntt._dft_middle(x, pack_k, transposed)
@@ -2783,8 +2445,12 @@ def rank_kernels(mesh, payload):
             plain = K.subntt_tiled_plain(x, pack_k.sub_r, rows, v, src, dst)
             assert torch.equal(got.reshape(-1), plain.reshape(-1)), (
                 f"B2 differs from plain torch at the {dft} DFT ({stage})")
-            assert torch.equal(got, dntt._dft_middle(x, pack_u, transposed)), (
-                f"B2 differs from the u64 network at the {dft} DFT ({stage})")
+            network = K.network_ntt(x.transpose(1, 2), K.make_network_pack(
+                m, f.h_pow(root, n // m), False, "cuda"))
+            assert torch.equal(
+                got, network if transposed else network.transpose(1, 2)), (
+                f"B2 differs from the radix-2 network at the {dft} DFT "
+                f"({stage})")
             case("subntt", {"b2": 1}, stage=stage, dft=dft,
                  vectors=rows * v, m=m, transposed_store=transposed,
                  tile=K.tile_shape(m, True))
@@ -2796,7 +2462,7 @@ def rank_kernels(mesh, payload):
             f"B3 differs from plain torch at rank {mesh.rank} ({stage})")
         assert torch.equal(
             got.view(rows, cl, R),
-            f.mul(y.view(rows, cl, R), u64.twiddle[None])), (
+            f.mul(y.view(rows, cl, R), columns[None])), (
             f"B3's offset tables differ from the rank's twiddle columns "
             f"at rank {mesh.rank} ({stage})")
         case("twiddle_outer", {"b3": 1}, stage=stage,
@@ -2865,42 +2531,30 @@ def rank_kernels(mesh, payload):
 
 
 def rank_proves(mesh, payload):
-    """Seeded proves of payload["src"] over the mesh of all ranks, one for
-    each NTT backend (after `warmups` untimed ones), on the rank's device."""
+    """A seeded prove of payload["src"] over the mesh of all ranks, on the
+    rank's device, with its launch counts."""
     from stark_brainfuck_tpu_torch.parallel.multihost import env_device
 
-    out = {}
-    for backend in ("u64", "auto"):
-        bfs, args = make_stark(
-            payload["src"], payload["seed"], env_device(),
-            trace=payload.get("trace"), ntt_backend=backend,
-            mesh_shape=(("shard", mesh.world),))
-        cuda = bfs.device.type == "cuda"
-        for _ in range(payload.get("warmups", 0)):
-            bfs.prove(*args)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.time()
-        proof = bfs.prove(*args)
-        if cuda:
-            torch.cuda.synchronize()
-        wall = time.time() - t0
-        m = bfs.last_metrics
-        out[backend] = {
-            "digest": hashlib.sha256(proof).hexdigest(),
-            "proof": proof if mesh.rank == 0 and payload.get("keep") else None,
-            "prove_s": wall, "launches": read_counts(),
-            "ntt_path": m["ntt_path"], "hash_path": m["hash_path"],
-            "mesh": m["mesh"], "stages_s": m["stages_s"],
-            "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                     if cuda else None),
-            "peak_bytes_at_mark": m.get("peak_bytes_at_mark"),
-            "fri_device_fold_rounds": device_rounds(bfs), **fri_split(bfs),
-        }
-        del bfs
-    return out
+    bfs, args = make_stark(
+        payload["src"], payload["seed"], env_device(),
+        trace=payload.get("trace"), mesh_shape=(("shard", mesh.world),))
+    cuda = bfs.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    proof = bfs.prove(*args)
+    if cuda:
+        torch.cuda.synchronize()
+    m = bfs.last_metrics
+    return {
+        "digest": hashlib.sha256(proof).hexdigest(),
+        "proof": proof if mesh.rank == 0 and payload.get("keep") else None,
+        "launches": read_counts(), "ntt_path": m["ntt_path"],
+        "hash_path": m["hash_path"], "mesh": m["mesh"],
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if cuda else None),
+        "fri_device_fold_rounds": device_rounds(bfs),
+    }
 
 
 def spawn_on(device, target, world, payload, timeout=600):
@@ -2915,28 +2569,22 @@ def spawn_on(device, target, world, payload, timeout=600):
 
 def dntt_check():
     for world in (2, 4):
-        ranks = spawn_on("cuda", "rank_dntt", world, None)
-        for route in ("u64", "kernel"):
-            rs = [r[route] for r in ranks]
-            want = {"b1": 0, "b2": 2, "b3": 1} if route == "kernel" else {
-                "b1": 0, "b2": 0, "b3": 0}
-            for rank, r in enumerate(rs):
-                assert r["max_abs_err"] == 0.0, (
-                    f"dntt_check: rank {rank} of {world} differs ({route})")
-                assert b_counts(r["launches"]) == want, (world, route,
-                                                         rank, r)
-                assert r["block"] == [MESH_DNTT_ROWS, (1 << LOG2_FRI) // world]
-            emit("dntt_check", world=world, route=route,
-                 rows=MESH_DNTT_ROWS, n=1 << LOG2_FRI, max_abs_err=0.0,
-                 factors=rs[0]["factors"], twiddle_on_b3=rs[0]["twiddle_on_b3"],
-                 launches_per_rank=[r["launches"] for r in rs],
-                 seconds_per_rank=[r["seconds"] for r in rs],
-                 collective_s_per_rank=[r["collective_s"] for r in rs],
-                 collective_copy_s_per_rank=[r["collective_copy_s"]
-                                             for r in rs],
-                 local_columns_ms_per_rank=[r["local_columns_ms"]
-                                            for r in rs],
-                 collective_bytes_per_rank=[r["collective_bytes"] for r in rs])
+        rs = spawn_on("cuda", "rank_dntt", world, None)
+        for rank, r in enumerate(rs):
+            assert r["max_abs_err"] == 0.0, (
+                f"dntt_check: rank {rank} of {world} differs")
+            assert b_counts(r["launches"]) == {"b1": 0, "b2": 2, "b3": 1}, (
+                world, rank, r)
+            assert r["block"] == [MESH_DNTT_ROWS, (1 << LOG2_FRI) // world]
+        emit("dntt_check", world=world, rows=MESH_DNTT_ROWS,
+             n=1 << LOG2_FRI, max_abs_err=0.0, factors=rs[0]["factors"],
+             twiddle_on_b3=rs[0]["twiddle_on_b3"],
+             launches_per_rank=[r["launches"] for r in rs],
+             seconds_per_rank=[r["seconds"] for r in rs],
+             collective_s_per_rank=[r["collective_s"] for r in rs],
+             collective_copy_s_per_rank=[r["collective_copy_s"] for r in rs],
+             local_columns_ms_per_rank=[r["local_columns_ms"] for r in rs],
+             collective_bytes_per_rank=[r["collective_bytes"] for r in rs])
 
 
 def mesh_kernels(src, world=2):
@@ -2955,93 +2603,75 @@ def mesh_kernels(src, world=2):
 
 
 def mesh_bytes(src, want: bytes):
-    """The N=16384 program over 2 and 4 ranks, on the card and on the CPU,
-    "u64" and "auto": every rank's bytes equal the single-device proof."""
+    """The N=16384 program over 2 and 4 ranks, on the card and on the CPU:
+    every rank's bytes equal the single-device proof."""
     digest = hashlib.sha256(want).hexdigest()
     verified = False
     for device in ("cuda", "cpu"):
         for world in (2, 4):
-            ranks = spawn_on(device, "rank_proves", world,
-                             {"src": src, "seed": 7, "keep": not verified})
-            for backend in ("u64", "auto"):
-                rs = [r[backend] for r in ranks]
-                for rank, r in enumerate(rs):
-                    assert r["digest"] == digest, (
-                        f"mesh_bytes: rank {rank} of {world} on {device} "
-                        f"({backend}) differs from the single-device proof")
-                    assert r["mesh"]["sharded_commit"], r["mesh"]
-                    if device == "cuda":
-                        assert r["launches"]["b1"] > 0, (world, rank, r)
-                        assert (r["launches"]["b2"] > 0) == (backend == "auto")
-                        check_f4(r["launches"], 1, ("mesh_bytes", world, rank))
-                        assert r["launches"]["f5"] == len(
-                            r["fri_device_fold_rounds"]), (world, rank, r)
-                if not verified:
-                    bfs, _ = make_stark(src, 7, "cpu")
-                    assert rs[0]["proof"] == want
-                    assert bfs.verify(rs[0]["proof"]), bfs.last_rejection
-                    verified = True
-                emit("mesh_bytes", device=device, world=world,
-                     ntt_backend=backend, ntt_path=rs[0]["ntt_path"],
-                     hash_path=rs[0]["hash_path"],
-                     backend=rs[0]["mesh"]["backend"],
-                     devices=rs[0]["mesh"]["devices"], identical=True,
-                     verified=True, prove_s_per_rank=[r["prove_s"] for r in rs],
-                     launches_per_rank=[r["launches"] for r in rs])
+            rs = spawn_on(device, "rank_proves", world,
+                          {"src": src, "seed": 7, "keep": not verified})
+            for rank, r in enumerate(rs):
+                assert r["digest"] == digest, (
+                    f"mesh_bytes: rank {rank} of {world} on {device} "
+                    f"differs from the single-device proof")
+                assert r["mesh"]["sharded_commit"], r["mesh"]
+                if device == "cuda":
+                    # B3 only from 128 columns a rank: none at N = 16384
+                    c = r["launches"]
+                    assert min(c["b1"], c["b2"]) > 0, (world, rank, r)
+                    check_f4(c, 1, ("mesh_bytes", world, rank))
+                    assert c["f5"] == len(r["fri_device_fold_rounds"]), (
+                        world, rank, r)
+            if not verified:
+                bfs, _ = make_stark(src, 7, "cpu")
+                assert rs[0]["proof"] == want
+                assert bfs.verify(rs[0]["proof"]), bfs.last_rejection
+                verified = True
+            emit("mesh_bytes", device=device, world=world,
+                 ntt_path=rs[0]["ntt_path"], hash_path=rs[0]["hash_path"],
+                 backend=rs[0]["mesh"]["backend"],
+                 devices=rs[0]["mesh"]["devices"], identical=True,
+                 verified=True, launches_per_rank=[r["launches"] for r in rs])
 
 
 def mesh_prove(src, want: bytes, smi, world=2):
     """The full-width resident prove (FRI 2^21) on `world` ranks (sharing
-    the card where there is one), "u64" and "auto": a warm-up and a timed
-    prove each. Returns each rank's launch counts, {backend: [counts of
-    rank 0, rank 1, ...]}."""
+    the card where there is one): every rank's bytes equal the
+    single-device proof, with its launch counts. Returns each rank's
+    launch counts."""
     from stark_brainfuck_tpu_torch import VirtualMachine
 
     trace = VirtualMachine.simulate(VirtualMachine.compile(src))
-    ranks = spawn_on("cuda", "rank_proves", world,
-                     {"src": src, "seed": 0, "trace": trace, "warmups": 1},
-                     timeout=900)
+    rs = spawn_on("cuda", "rank_proves", world,
+                  {"src": src, "seed": 0, "trace": trace}, timeout=900)
     digest = hashlib.sha256(want).hexdigest()
     # the tables' heights, from a stark that proves nothing
-    intt = intt_launches(make_stark(src, 0, "cpu", trace=trace)[0])
-    launches = {}
-    for backend in ("u64", "auto"):
-        rs = [r[backend] for r in ranks]
-        for rank, r in enumerate(rs):
-            assert r["digest"] == digest, (
-                f"mesh_prove: rank {rank} ({backend}) differs from full_prove")
-            c = r["launches"]
-            assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
-            check_f4(c, 1, ("mesh_prove", backend, rank))
-            # every round from 2^21 down to 2^14: in blocks, then gathered
-            assert c["f5"] == len(r["fri_device_fold_rounds"]) == 8, (
-                backend, rank, c)
-            # the distributed transform's two local DFTs and its twiddle a
-            # stage, and the tables' INTTs (replicated), on the card's
-            # default route
-            i2, i3 = intt if backend == "auto" else (0, 0)
-            assert (c["b2"], c["b3"]) == (
-                (4 + i2, 2 + i3) if backend == "auto" else (0, 0)), (
-                backend, rank, c)
-        launches[backend] = [r["launches"] for r in rs]
-        emit("mesh_prove", world=world, ntt_backend=backend,
-             ntt_path=rs[0]["ntt_path"], fri_domain=1 << LOG2_FRI,
-             trace_cycles=int(trace["processor"].shape[0]),
-             backend=rs[0]["mesh"]["backend"], devices=rs[0]["mesh"]["devices"],
-             identical_to_full_prove=True,
-             prove_s_per_rank=[r["prove_s"] for r in rs],
-             launches_per_rank=launches[backend],
-             collectives_per_rank=[r["mesh"]["collectives"] for r in rs],
-             collective_s_per_rank=[r["mesh"]["collective_s"] for r in rs],
-             collective_bytes_per_rank=[r["mesh"]["collective_bytes"]
+    i2, i3 = intt_launches(make_stark(src, 0, "cpu", trace=trace)[0])
+    for rank, r in enumerate(rs):
+        assert r["digest"] == digest, (
+            f"mesh_prove: rank {rank} differs from full_prove")
+        c = r["launches"]
+        assert c["b1"] > 0, f"mesh_prove: rank {rank} launched no B1"
+        check_f4(c, 1, ("mesh_prove", rank))
+        # every round from 2^21 down to 2^14: in blocks, then gathered
+        assert c["f5"] == len(r["fri_device_fold_rounds"]) == 8, (rank, c)
+        # the distributed transform's two local DFTs and its twiddle a
+        # stage, and the tables' INTTs (replicated)
+        assert (c["b2"], c["b3"]) == (4 + i2, 2 + i3), (rank, c)
+    launches = [r["launches"] for r in rs]
+    emit("mesh_prove", world=world, ntt_path=rs[0]["ntt_path"],
+         fri_domain=1 << LOG2_FRI,
+         trace_cycles=int(trace["processor"].shape[0]),
+         backend=rs[0]["mesh"]["backend"], devices=rs[0]["mesh"]["devices"],
+         identical_to_full_prove=True, launches_per_rank=launches,
+         collectives_per_rank=[r["mesh"]["collectives"] for r in rs],
+         collective_s_per_rank=[r["mesh"]["collective_s"] for r in rs],
+         collective_bytes_per_rank=[r["mesh"]["collective_bytes"]
+                                    for r in rs],
+         max_memory_allocated_per_rank=[r["max_memory_allocated"]
                                         for r in rs],
-             max_memory_allocated_per_rank=[r["max_memory_allocated"]
-                                            for r in rs],
-             stages_s_per_rank=[r["stages_s"] for r in rs],
-             fri_device_s_per_rank=[r["fri_device_s"] for r in rs],
-             fri_host_s_per_rank=[r["fri_host_s"] for r in rs],
-             peak_bytes_at_mark_per_rank=[r["peak_bytes_at_mark"] for r in rs],
-             nvidia_smi=smi)
+         nvidia_smi=smi)
     return launches
 
 
@@ -3052,9 +2682,8 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
     shape `rows[main]`, the largest error over every checked shape;
     `launches` of the resident full-size prove, `launches_streamed` of the
     streamed one (32 classes), `launches_mesh` of one rank of the 2-rank
-    mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14, each
-    on the card's default route, the four-step transform; `no_library` says
-    why library_ms is null."""
+    mesh prove and `launches_ref` of the ref-codec prove at FRI 2^14;
+    `no_library` says why library_ms is null."""
     main_shape = rows[main]
     return {
         "name": name,
@@ -3081,71 +2710,23 @@ def kernel_entry(name, source, replaces, launches, launches_streamed,
 def other_paths(native_proof, smi):
     """Step 8: the reference codec, the DEBUG degree checks, the polynomial
     toolbox and the non-default soundness parameters, on the kernels of the
-    main path. Returns the launches of `ref_codec_bytes`' proves."""
+    main path. Returns the launches of `ref_codec_bytes`' prove."""
     launches = ref_codec_bytes(native_proof)
     ref_codec_golden()
-    ref_codec_prove(smi)
     debug_degrees(native_proof)
     poly_toolbox()
     soundness_params(smi)
     return launches
 
 
-# what a tree runs in each turn of `--turns`, from its own checkout
-TURN_PHASES = """
-import sys
-sys.path.insert(0, ".")
-import chip_smoke as c
-from stark_brainfuck_tpu_torch.ops import cuda_build
-cuda_build.build()
-cuda_build.build_host()
-smi = c.smi_line()
-src = c.counter_program(1 << c.LOG2_CYCLES)
-c.quotient_kernel(src, smi)
-c.full_proves(src, smi)
-c.stream_proves(c.STREAM_LOG2_CYCLES, smi,
-                [("streamed", {"stream_classes": c.STREAM_CLASSES[0]})])
-"""
-
-
-def turns(parent: str):
-    """`--turns`: TURN_PHASES in the parent checkout and in this one, in
-    turns parent, this tree, this tree, parent, each in a process of its
-    own (so each tree runs its own code and builds its own kernels); each
-    JSON line a turn prints, tagged with the turn and the tree. A failed
-    turn raises."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    parent = os.path.abspath(parent)
-    if not os.path.exists(os.path.join(parent, "chip_smoke.py")):
-        raise SystemExit(f"--turns: no chip_smoke.py in {parent}")
-    for k, (tree, root) in enumerate((("parent", parent), ("change", here),
-                                      ("change", here), ("parent", parent))):
-        proc = subprocess.run([sys.executable, "-c", TURN_PHASES], cwd=root,
-                              capture_output=True, text=True, timeout=1500)
-        for line in proc.stdout.splitlines():
-            if line.startswith("{"):
-                print(json.dumps({"turn": k, "tree": tree,
-                                  **json.loads(line)}), flush=True)
-        if proc.returncode:
-            print(proc.stderr[-6000:], file=sys.stderr, flush=True)
-            raise SystemExit(f"--turns: turn {k} ({tree}) failed")
-
-
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", metavar="DIR",
-                    help="also trace one full-size prove with torch.profiler "
-                         "and write its kernel table to DIR")
     ap.add_argument("--b2-sweep", action="store_true",
                     help="after the build, time kernel B2 under several "
                          "tile shapes and stop")
     ap.add_argument("--b2-parts", action="store_true",
                     help="after the build, time kernel B2 with its arithmetic "
                          "or its memory traffic cut out, and stop")
-    ap.add_argument("--stream-log2-cycles", type=int, metavar="K",
-                    help="after the build, prove a counter of 2^K cycles down "
-                         "the streamed path (32 classes, both NTT paths), "
-                         "and stop")
     ap.add_argument("--field-kernels", action="store_true",
                     help="after the build, run the field_kernels phase "
                          "(F1, F2, F3 against their plain versions) and stop")
@@ -3153,10 +2734,6 @@ def main():
                     help="after the build, run the fri_fold and "
                          "fri_host_fold phases (F5 and the host fold against "
                          "the plain fold) and stop")
-    ap.add_argument("--turns", metavar="PARENT_DIR",
-                    help="run quotient_kernel, full_proves and the 32-class "
-                         "streamed prove of PARENT_DIR's checkout and of "
-                         "this one in turns, and stop")
     ap.add_argument("--ref-codec", action="store_true",
                     help="after the build, run step 5 and the phases of the "
                          "reference codec, the DEBUG degree checks and the "
@@ -3166,9 +2743,6 @@ def main():
                          "streamed prover, run mesh_prove on RANKS ranks "
                          "(2), and stop before the kernels line")
     opts = ap.parse_args()
-    if opts.stream_log2_cycles and not 16 <= opts.stream_log2_cycles <= 20:
-        ap.error("--stream-log2-cycles takes 16..20: FRI 2^22 (the default "
-                 "stream_min) to 2^26 (the largest domain)")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3202,10 +2776,6 @@ def main():
     assert {"hashing", "vm", "quotients_host", "fri_host"} <= set(
         host_libs), host_libs
 
-    if opts.turns:
-        turns(opts.turns)
-        print(smi, flush=True)
-        return
     full_src = counter_program(1 << LOG2_CYCLES)
     if opts.field_kernels or opts.fri_fold:
         if opts.field_kernels:
@@ -3216,14 +2786,11 @@ def main():
             fri_host_fold(smi)
         print(smi, flush=True)
         return
-    if opts.b2_sweep or opts.b2_parts or opts.stream_log2_cycles:
+    if opts.b2_sweep or opts.b2_parts:
         if opts.b2_sweep:
             b2_sweep()
         if opts.b2_parts:
             b2_parts()
-        if opts.stream_log2_cycles:
-            stream_proves(opts.stream_log2_cycles, smi,
-                          stream_plans(STREAM_CLASSES[:1]))
         print(smi, flush=True)
         return
     native_host(smi)
@@ -3232,10 +2799,9 @@ def main():
         b1 = check_b1()
 
         # 4. B2 / B3 against their plain versions; the composed transform
-        # against the u64 network
+        # against the plain radix-2 network at the benchmark cells' batches
         check_b2_every_size()
         b2, b3 = check_ntt_kernels()
-        # the composed transform at the benchmark cells' batches
         cell_ntt(smi)
 
         # 4b. F1, F2, F3 against their plain versions; F4 against the
@@ -3246,34 +2812,16 @@ def main():
         f_rows["f5"] = fri_fold(smi)
         fri_host_fold(smi)
 
-    # 5. the same seeded proof on cuda and on cpu, default and mxu NTT
+    # 5. the same seeded proof on cuda and on cpu
     src = STREAM_SRC
-    proof_small, _ = bytes_across_devices("bytes_across_devices", src)
-    _, counts = bytes_across_devices(
-        "bytes_across_devices_mxu", src, want=proof_small, ntt_backend="mxu"
-    )
-    assert counts["b2"] > 0 and counts["b3"] > 0, (
-        "mxu prove launched no B2/B3 kernel"
-    )
+    proof_small = bytes_across_devices(src)
     if opts.ref_codec:
         other_paths(proof_small, smi)
         print(smi, flush=True)
         return
 
-    # 6. full-size prove on the card, default and u64 NTT in turns
-    starks, launches, proof_full = full_proves(full_src, smi)
-    # one four-step transform per LDE stage (two sub-NTTs and one twiddle)
-    # and the tables' INTTs
-    full_ntt = ntt_launches(starks["full_prove"][0], 2, 1 << LOG2_FRI)
-    for counts in launches["full_prove"]:
-        assert (counts["b2"], counts["b3"]) == full_ntt, counts
-    for counts in launches["full_prove_u64"]:
-        assert (counts["b2"], counts["b3"]) == (0, 0), counts
-    if opts.profile:
-        profile_prove(*starks["full_prove"], opts.profile)
-    counts = launches["full_prove"][0]
-    u64_counts = launches["full_prove_u64"][0]
-    del starks
+    # 6. the full-size prove on the card, once on each path
+    counts, proof_full = full_proves(full_src, smi)
 
     if not opts.mesh:
         # 7. the streamed prover: bytes, checkpoints, kernels at its shapes,
@@ -3281,23 +2829,7 @@ def main():
         stream_bytes(proof_small)
         stream_checkpoint(proof_small)
         stream_kernels()
-        runs = stream_proves(
-            STREAM_LOG2_CYCLES, smi,
-            [("resident", {})] + stream_plans(STREAM_CLASSES)
-            + [("streamed_plain_quotients",
-                {"stream_classes": STREAM_CLASSES[0]})])
-        assert runs[1]["fri_domain"] == 1 << 22 and runs[1]["block"] == STREAM_S
-        # the JAX rule's groups; stream_proves held every B1, B2 and B3
-        # count to its class groups (B1 against the resident prove's)
-        assert [run["group"] for run in runs[1:]] == [8, 8, 2, 2, 8], [
-            run["group"] for run in runs]
-        # F5: one launch a device fold round, 2^22 down to 2^14
-        assert [run["launches"]["f5"] for run in runs] == [9] * len(runs), [
-            run["launches"] for run in runs]
-        # the 32-class prove on the four-step transform, the card's default
-        streamed = {k: runs[2]["launches"][k]
-                    for k in ("b1", "b2", "b3", "f1", "f2", "f3", "f4", "f5")}
-        assert min(streamed.values()) > 0, streamed
+        streamed = stream_launches()
 
         # 8. the reference codec, the DEBUG checks, the polynomial toolbox,
         # soundness parameters
@@ -3311,7 +2843,7 @@ def main():
     if opts.mesh:
         print(smi, flush=True)
         return
-    mesh_counts = on_mesh["auto"][0]
+    mesh_counts = on_mesh[0]
 
     # 10. kernels line (ms at the prover's largest shape of each kernel)
     # (B1: the ext leaf; B2: the extension r-pass, 6,912 x 8,192; B3: the
@@ -3319,7 +2851,7 @@ def main():
     kernels = [
         kernel_entry("blake2b_words", "stark_brainfuck_tpu_torch/csrc/blake2b.cu",
                      "stark_brainfuck_tpu/ops/pallas_blake2b.py:111",
-                     launches["full_prove"][0]["b1"], streamed["b1"],
+                     counts["b1"], streamed["b1"],
                      mesh_counts["b1"], ref_counts["b1"], b1, 3,
                      ("n", "W", "msg_len"),
                      "no PyTorch call computes BLAKE2b"),
@@ -3343,7 +2875,7 @@ def main():
     # no Pallas kernel; "replaces" names the function each one computes
     # (F3 at its largest group of the main path, the 16 base columns)
     field_src = "stark_brainfuck_tpu_torch/csrc/field.cu"
-    full = launches["full_prove"][0]
+    full = counts
     for key, name, replaces, what, main, at in (
             ("f1", "gl_elementwise", "stark_brainfuck_tpu/ops/field.py:77",
              "field.add:44, sub:52, mul:77",
@@ -3381,8 +2913,7 @@ def main():
                       "_acc_group:765, staged as comb_quot{ti} + "
                       "comb_acc_q{T} and comb_pa + comb_acc_q2 "
                       "(stark.py:1386-1428)",
-        extra={"launches_u64": u64_counts["f4"],
-               "launches_prologue": full["f4_prologue"]}))
+        extra={"launches_prologue": full["f4_prologue"]}))
     # F5 stands for XLA's compiled fold round, fri.fold.n{N}.tree{t}: ms
     # and bound at the top device round of the resident prove, N = 2^21
     kernels.append(kernel_entry(
@@ -3395,8 +2926,7 @@ def main():
         "no PyTorch call folds F_p^3 codewords",
         replaces_note="no pl.pallas_call: the XLA-compiled fold round "
                       "_fold_device:55 (fri.fold.n{N}.tree{t}), whose "
-                      "arithmetic is _fold_math:39",
-        extra={"launches_u64": u64_counts["f5"]}))
+                      "arithmetic is _fold_math:39"))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,13 +58,13 @@ class StarkConfig:
     # (utils/checkpoint.py); None keeps none
     checkpoint_dir: Optional[str] = None
 
-    # the LDE's transforms (the tables' INTTs, the forward NTT): "mxu" runs
-    # the four-step transform on kernels B2/B3 (ops/kernel_ntt.py,
-    # csrc/ntt.cu; their plain torch versions on the CPU), the port of the
-    # JAX package's int8-limb MXU path; "u64" runs the u64 butterfly
-    # network; "auto" is "mxu" on a CUDA device and "u64" on any other (the
-    # JAX package resolves "auto" to the network on every device).
-    # mxu_ntt_min is accepted and unused, as there.
+    # the JAX package's choice of NTT (its u64 network or its int8-limb MXU
+    # path), kept so that its configurations carry across: all three values
+    # run the same transform in the port, the four-step plan of
+    # ops/kernel_ntt.py (kernels B2/B3 on a CUDA device, their plain torch
+    # versions on the CPU), which has no plan above 2^26 points, so a
+    # larger FRI domain raises on every device. mxu_ntt_min is accepted and
+    # unused, as in the JAX package.
     ntt_backend: str = "auto"
     mxu_ntt_min: int = 1 << 14
 

@@ -5,8 +5,9 @@ toolbox of ref ntt.py:45-235: NTT multiplication, product-tree zerofiers,
 remainder-tree multipoint evaluation, divide-and-conquer interpolation,
 coset division) on int64 tensors that hold u64 bits. Each product or
 remainder tree level is ONE batched NTT over a (num_nodes, 2^k)
-coefficient matrix (`ops/ntt.py` `ntt_with`), so a level is one
-vectorised transform rather than num_nodes recursive calls.
+coefficient matrix (`ops/ntt.py` `ntt`, on the kernel plan of every
+transform), so a level is one vectorised transform rather than num_nodes
+recursive calls.
 
 Like the JAX package's, these are utility and parity algorithms: the
 protocol only evaluates and interpolates on subgroup cosets, where the
@@ -66,11 +67,9 @@ def fast_multiply(a, b, device=None):
                            device=a.device)
     m = _next_pow2(la + lb - 1)
     root = f.primitive_nth_root(m)
-    pack = nt.make_pack(m, root, False, a.device)
-    ipack = nt.make_pack(m, root, True, a.device)
-    fa = nt.ntt_with(_pad_to(a, m), pack)
-    fb = nt.ntt_with(_pad_to(b, m), pack)
-    prod = nt.ntt_with(f.mul(fa, fb), ipack)
+    fa = nt.ntt(_pad_to(a, m), root)
+    fb = nt.ntt(_pad_to(b, m), root)
+    prod = nt.intt(f.mul(fa, fb), root)
     return prod[..., : la + lb - 1]
 
 
@@ -183,10 +182,7 @@ def fast_coset_evaluate(coeffs, offset: int, root: int, length: int,
                         device=None):
     """Evaluate on the coset offset·⟨root⟩ (ref ntt.py:164-168)."""
     coeffs = _tensor(coeffs, device)
-    return nt.coset_evaluate_with(
-        coeffs, nt.scale_table(offset, coeffs.shape[-1], coeffs.device),
-        nt.make_pack(length, root, False, coeffs.device), length,
-    )
+    return nt.coset_evaluate(coeffs, offset, root, length)
 
 
 def fast_coset_divide(a, b, offset: int, root: int, order: int, device=None):

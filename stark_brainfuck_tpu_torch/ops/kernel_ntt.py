@@ -1,10 +1,11 @@
-"""Four-step Goldilocks NTT on kernels B2 and B3 (`ntt_backend="mxu"`,
-and "auto" on a CUDA device).
+"""Four-step Goldilocks NTT on kernels B2 and B3: every NTT of the port.
 
 The counterpart of the JAX package's `ops/pallas_ntt.py`: the same
-transform, bit-identical to the u64 butterfly network of `ops/ntt.py`. The
-four-step split (`plan_geometry`) and the order of its passes are the
-port's own, chosen for the card.
+transform, bit-identical to the u64 butterfly network of the JAX package's
+`ops/ntt.py`. The four-step split (`plan_geometry`) and the order of its
+passes are the port's own, chosen for the card. `ntt_backend` chooses
+nothing here: every value runs this transform (B2/B3 on a CUDA tensor,
+their plain versions on a CPU tensor).
 
 The representation differs. The TPU kernels hold each element as 9
 balanced int8 limbs, plane-major, so that the radix-128/64 DFTs run as int8
@@ -29,6 +30,9 @@ exponent kappa of the sub-root's 8th root, the tile shape.
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs its plain torch version (`subntt_plain`,
 `subntt_tiled_plain`, `twiddle_outer_plain`); any other device raises.
+B2's plain version is the radix-2 butterfly network (`network_ntt`, on the
+plain field operations), which `chip_smoke.py` also holds the composed
+transform to on the card.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ from ..convert import to_i64
 from ..utils.metrics import transfer
 from . import cuda_build
 from . import field as f
-from . import ntt as nt
 
 SUB_MAX = 1 << 13  # largest sub-transform
 KERNEL_NTT_MAX = 1 << 26  # n = r·c with r, c <= SUB_MAX
@@ -64,13 +67,22 @@ LAUNCHES_SUBNTT = 0
 LAUNCHES_TWIDDLE = 0
 
 
+class TwiddlePack(NamedTuple):
+    """Tables of the radix-2 network for one (n, root): the bit-reversal
+    permutation and the per-stage twiddle arrays."""
+
+    perm: object  # (n,) int64 indices
+    stages: Tuple  # stage s (1-based): (2^(s-1),) twiddles
+    n_inv: Optional[object] = None  # () scalar — set for inverse transforms
+
+
 class SubPlan(NamedTuple):
-    """One m-point sub-transform: the radix-2 tables of `ops/ntt.py` (the
-    plain version's), the kernel's between-step twiddles and 8th-root
-    exponent, and the factor applied to every output."""
+    """One m-point sub-transform: the radix-2 tables of the plain version,
+    the kernel's between-step twiddles and 8th-root exponent, and the
+    factor applied to every output."""
 
     m: int
-    pack: nt.TwiddlePack
+    pack: TwiddlePack
     scale: int  # 1, or n^-1 for the last sub-NTT of an inverse plan
     table: torch.Tensor  # `step_table(m, root)`
     kappa: int  # `root_kappa(m, root)`
@@ -96,11 +108,12 @@ class Strides(NamedTuple):
 
 
 def plan_geometry(n: int) -> Tuple[int, int]:
-    """(r, c) with n = r·c: one sub-transform up to 2^13 points, else the
-    balanced split c = 2^max(7, floor(log n / 2)), r = n / c >= c. Both
-    sub-transforms then fit a block's shared memory several columns at a
-    time, and c >= 128 keeps B3's factored table."""
-    if n < 2 or n & (n - 1) or n > KERNEL_NTT_MAX:
+    """(r, c) with n = r·c: one sub-transform up to 2^13 points (n = 1, a
+    table of height 1, is the identity), else the balanced split
+    c = 2^max(7, floor(log n / 2)), r = n / c >= c. Both sub-transforms
+    then fit a block's shared memory several columns at a time, and
+    c >= 128 keeps B3's factored table."""
+    if n < 1 or n & (n - 1) or n > KERNEL_NTT_MAX:
         raise ValueError(f"no kernel NTT plan for n = {n}")
     if n <= SUB_MAX:
         return n, 1
@@ -188,7 +201,7 @@ def outer_tables(n: int, r: int, root: int, device=None):
 
 
 def _sub_plan(m: int, root: int, scale: int, device) -> SubPlan:
-    return SubPlan(m, nt._make_small_pack(m, root, False, device), scale,
+    return SubPlan(m, make_network_pack(m, root, False, device), scale,
                    step_table(m, root, device), root_kappa(m, root))
 
 
@@ -228,9 +241,75 @@ def _kernel_plan(n: int, root: int, inverse: bool, device) -> KernelNttPlan:
 # ---------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=None)
+def _bitrev_permutation(n: int) -> torch.Tensor:
+    logn = n.bit_length() - 1
+    idx = torch.arange(n, dtype=torch.int64)
+    rev = torch.zeros(n, dtype=torch.int64)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
+@lru_cache(maxsize=None)
+def _stage_twiddles(n: int, root: int) -> tuple:
+    """Stage s (m = 2^s) needs [w_m^j for j < m/2] with w_m = root^(n/m): a
+    strided slice of the full power table (host tensors)."""
+    full = f.powers(root, max(n // 2, 1))
+    tables = []
+    logn = n.bit_length() - 1
+    for s in range(1, logn + 1):
+        m = 1 << s
+        tables.append(full[:: n // m][: m // 2].contiguous())
+    return tuple(tables)
+
+
+def make_network_pack(n: int, root: int, inverse: bool = False,
+                      device=None) -> TwiddlePack:
+    """The radix-2 network's tables for a size-n transform with `root` (or
+    its inverse, scaled by n^-1), on `device`."""
+    n_inv = None
+    if inverse:
+        n_inv = transfer(torch.tensor(to_i64(f.h_inverse(n % f.P)),
+                                      dtype=torch.int64), device)
+    r = f.h_inverse(root) if inverse else root
+    return TwiddlePack(
+        perm=transfer(_bitrev_permutation(n), device),
+        stages=tuple(transfer(s, device) for s in _stage_twiddles(n, r)),
+        n_inv=n_inv,
+    )
+
+
+def network_ntt(values, pack: TwiddlePack):
+    """The iterative radix-2 butterfly network along the last axis, on the
+    plain field operations on any device: out[k] = Σ_j v[j]·root^(jk),
+    scaled by pack.n_inv where it is set. B2's plain version, and the
+    yardstick of the composed transform."""
+    n = values.shape[-1]
+    if n <= 1:
+        return values
+    shape = values.shape
+    x = values.reshape((-1, n))[:, pack.perm]
+    b = x.shape[0]
+    logn = n.bit_length() - 1
+    for s in range(1, logn + 1):
+        m = 1 << s
+        half = m >> 1
+        tw = pack.stages[s - 1]
+        x = x.reshape((b, n // m, m))
+        even = x[:, :, :half]
+        odd = x[:, :, half:]
+        t = f.mul_plain(odd, tw[None, None, :])
+        x = torch.cat([f.add_plain(even, t), f.sub_plain(even, t)], dim=-1)
+    x = x.reshape(shape)
+    if pack.n_inv is not None:
+        x = f.mul_plain(x, pack.n_inv)
+    return x
+
+
 def subntt_plain(x, sub: SubPlan):
-    """The radix-2 network of `ops/ntt.py` along each row, then the scale."""
-    out = nt.ntt_with(x, sub.pack, plain=True)
+    """The radix-2 network along each row, then the scale."""
+    out = network_ntt(x, sub.pack)
     return out if sub.scale == 1 else f.mul_plain(out, f.const(sub.scale, out))
 
 
@@ -407,7 +486,10 @@ def twiddle_outer(y, plan: KernelNttPlan):
 
 def ntt_kernel(values, plan: KernelNttPlan):
     """int64 rows (..., n) -> (..., n): out[k] = Σ_j v[j]·root^(jk), scaled
-    by n^-1 for inverse plans (the contract of `ops/ntt.ntt_with`).
+    by n^-1 for inverse plans (the contract of the JAX package's
+    `ops/ntt.ntt_with`). Every NTT of the port goes through here. A
+    one-point transform is the identity (its n^-1 is 1): the input comes
+    back, and no kernel is launched.
 
     With j = b·r + a and k = k1·c + k2, B2 transforms each row's (c, r)
     view down its columns (over b, root w^r), in place of layout: y[k2, a];
@@ -418,6 +500,8 @@ def ntt_kernel(values, plan: KernelNttPlan):
     n = values.shape[-1]
     if n != plan.n:
         raise ValueError(f"ntt_kernel: width {n}, plan for {plan.n}")
+    if n == 1:
+        return values
     shape = values.shape
     v = values.reshape(-1, n).contiguous()
     B = v.shape[0]
@@ -430,15 +514,3 @@ def ntt_kernel(values, plan: KernelNttPlan):
     out = subntt_tiled(y, plan.sub_r, B, c, Strides(n, r, 1), Strides(n, 1, c))
     return out.reshape(shape)
 
-
-def forward_ntt(values, pack):
-    """The NTT along the last axis with whichever tables the caller
-    resolved: a `KernelNttPlan` runs the four-step transform on B2/B3, a
-    pack of `ops/ntt.py` the u64 butterfly network. Bit-identical. Forward,
-    or inverse scaled by n^-1 where the tables are an inverse's. Both LDE
-    stages of the resident prover, every class transform of the streamed
-    one and every table's INTT (`ops/ntt._randomized_coefficients`) go
-    through here."""
-    if isinstance(pack, KernelNttPlan):
-        return ntt_kernel(values, pack)
-    return nt.ntt_with(values, pack)

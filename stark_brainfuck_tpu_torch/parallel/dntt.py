@@ -22,16 +22,14 @@ transposes are `Mesh.all_to_all` calls. A rank holds only its C/D columns
 of the twiddle matrix, never the N-word table, and no N-long row.
 
 The two local DFTs run along the middle axis of the rank's (B, R, C/D) and
-(B, C, R/D) blocks (`_dft_middle`): on the u64 butterfly network through the
-prover's one switch, `ops/kernel_ntt.forward_ntt`, under "u64" and on the
-CPU under "auto"; on kernel B2 under "mxu" and, on a CUDA device, under
-"auto" (R and C are at most 2^13 up to N = 2^26, so one
-launch each), which reads and writes the transposed views through its own
-strides, so that no torch transpose copy of the block is made around it.
-The twiddle step is a field multiply by the local table;
-on the kernel route, from 128 columns a rank up, it runs on kernel B3: the
-rank's column offset goes into the high factor of B3's factored table
-(row b_hi holds w^((offset + 128·b_hi)·j)), and the kernel is unchanged.
+(B, C, R/D) blocks (`_dft_middle`) on kernel B2 (its plain version on the
+CPU; R and C are at most 2^13 up to N = 2^26, so one launch each), which
+reads and writes the transposed views through its own strides, so that no
+torch transpose copy of the block is made around it. The twiddle step is a
+field multiply by the local table; from 128 columns a rank up it runs on
+kernel B3: the rank's column offset goes into the high factor of B3's
+factored table (row b_hi holds w^((offset + 128·b_hi)·j)), and the kernel
+is unchanged.
 """
 
 from __future__ import annotations
@@ -60,8 +58,8 @@ class DnttTables(NamedTuple):
     n: int
     R: int
     C: int
-    pack_r: object  # tables of `forward_ntt` for the R-point DFT
-    pack_c: object  # ... and for the C-point DFT
+    pack_r: kn.KernelNttPlan  # the R-point DFT, one B2 sub-transform
+    pack_c: kn.KernelNttPlan  # ... and the C-point DFT
     twiddle: Optional[torch.Tensor]  # (C/D, R): ω^(c·k1), the rank's columns
     twiddle_plan: Optional[kn.KernelNttPlan]  # B3's tables in its place
 
@@ -73,47 +71,44 @@ def divides(n: int, world: int) -> bool:
     return R % world == 0 and C % world == 0
 
 
-def make_dntt_tables(n: int, root: int, mesh: Mesh, device=None,
-                     kernel: bool = False) -> DnttTables:
+def twiddle_columns(root: int, lo: int, hi: int, R: int, device=None):
+    """Columns [lo, hi) of the twiddle matrix T[k1, c] = root^(c·k1),
+    transposed: (hi - lo, R), row c is 1, w^c, w^2c, ..."""
+    ratios = u64_to_tensor([f.h_pow(root, c) for c in range(lo, hi)])
+    return f.geometric_rows(torch.ones_like(ratios), ratios, R).to(device)
+
+
+def make_dntt_tables(n: int, root: int, mesh: Mesh,
+                     device=None) -> DnttTables:
     """The rank's tables for the n-point transform with `root`, on `device`
-    (the mesh's by default): both DFT packs, and the twiddles of the rank's
-    own C/D columns. `kernel` selects the B2/B3 route."""
+    (the mesh's by default): both DFT plans, and the twiddles of the rank's
+    own C/D columns (B3's offset tables from 128 columns up)."""
     device = mesh.device if device is None else device
     R, C = _factor(n)
     if not divides(n, mesh.world):
         raise ValueError(
             f"mesh size {mesh.world} must divide both NTT factors {R}x{C}"
         )
-    root_r = f.h_pow(root, C)  # primitive R-th root
-    root_c = f.h_pow(root, R)  # primitive C-th root
+    if C > kn.SUB_MAX:
+        raise ValueError(f"no distributed transform of factors {R}x{C}: a "
+                         f"local DFT is one B2 launch, {kn.SUB_MAX} points")
+    pack_r = kn.make_kernel_plan(R, f.h_pow(root, C), False, device)
+    pack_c = kn.make_kernel_plan(C, f.h_pow(root, R), False, device)
     lo, hi = mesh.block(C)
     cl = hi - lo
-    if kernel:
-        if C > kn.SUB_MAX:
-            raise ValueError(f"no kernel route for factors {R}x{C}: a local "
-                             f"DFT is one B2 launch, {kn.SUB_MAX} points")
-        pack_r = kn.make_kernel_plan(R, root_r, False, device)
-        pack_c = kn.make_kernel_plan(C, root_c, False, device)
-    else:
-        pack_r = nt.make_pack(R, root_r, False, device)
-        pack_c = nt.make_pack(C, root_c, False, device)
-    twiddle = plan = None
-    if kernel and cl >= 128:
-        # row b = 128·b_hi + b_lo of the rank's (cl, R) table is
-        # w^((lo + b)·j): the column offset rides in the hi rows
-        hi_ratios = u64_to_tensor(
-            [f.h_pow(root, lo + 128 * b) for b in range(cl // 128)])
-        tw_hi = f.geometric_rows(torch.ones_like(hi_ratios), hi_ratios, R)
-        plan = kn.KernelNttPlan(
-            R * cl, R, cl, None, None, tw_hi.to(device),
-            kn.twiddle_values(128, R, root, 1, device),
-        )
-    else:
-        # T[k1, c] = root^(c·k1), transposed: row c is 1, w^c, w^2c, ...
-        ratios = u64_to_tensor([f.h_pow(root, c) for c in range(lo, hi)])
-        twiddle = f.geometric_rows(torch.ones_like(ratios), ratios,
-                                   R).to(device)
-    return DnttTables(n, R, C, pack_r, pack_c, twiddle, plan)
+    if cl < 128:
+        return DnttTables(n, R, C, pack_r, pack_c,
+                          twiddle_columns(root, lo, hi, R, device), None)
+    # row b = 128·b_hi + b_lo of the rank's (cl, R) table is
+    # w^((lo + b)·j): the column offset rides in the hi rows
+    hi_ratios = u64_to_tensor(
+        [f.h_pow(root, lo + 128 * b) for b in range(cl // 128)])
+    tw_hi = f.geometric_rows(torch.ones_like(hi_ratios), hi_ratios, R)
+    plan = kn.KernelNttPlan(
+        R * cl, R, cl, None, None, tw_hi.to(device),
+        kn.twiddle_values(128, R, root, 1, device),
+    )
+    return DnttTables(n, R, C, pack_r, pack_c, None, plan)
 
 
 def _local_columns(groups: Sequence[torch.Tensor], R: int, C: int, lo: int,
@@ -135,19 +130,15 @@ def _local_columns(groups: Sequence[torch.Tensor], R: int, C: int, lo: int,
     return x
 
 
-def _dft_middle(x: torch.Tensor, pack, transposed: bool):
-    """DFT along axis 1 of the contiguous x (B, m, v). Returns (B, v, m)
-    when `transposed`, else (B, m, v). A kernel plan (one sub-transform) runs
-    B2 with the strides of both layouts; a pack of `ops/ntt.py` moves the
-    axis last for the u64 network and back."""
+def _dft_middle(x: torch.Tensor, plan: kn.KernelNttPlan, transposed: bool):
+    """DFT along axis 1 of the contiguous x (B, m, v): one B2 launch (the
+    plan is one sub-transform) with the strides of both layouts. Returns
+    (B, v, m) when `transposed`, else (B, m, v)."""
     B, m, v = (int(d) for d in x.shape)
-    if isinstance(pack, kn.KernelNttPlan):
-        src = kn.Strides(m * v, 1, v)
-        dst = kn.Strides(m * v, m, 1) if transposed else src
-        out = kn.subntt_tiled(x, pack.sub_r, B, v, src, dst)
-        return out.view(B, v, m) if transposed else out
-    y = kn.forward_ntt(x.transpose(1, 2), pack)  # (B, v, m)
-    return y if transposed else y.transpose(1, 2)
+    src = kn.Strides(m * v, 1, v)
+    dst = kn.Strides(m * v, m, 1) if transposed else src
+    out = kn.subntt_tiled(x, plan.sub_r, B, v, src, dst)
+    return out.view(B, v, m) if transposed else out
 
 
 def distributed_ntt_with(values: Union[torch.Tensor, Sequence[torch.Tensor]],
@@ -181,18 +172,18 @@ def distributed_ntt_with(values: Union[torch.Tensor, Sequence[torch.Tensor]],
     return y.reshape(B, cl * R)
 
 
-def distributed_ntt(values, root: int, mesh: Mesh, kernel: bool = False):
+def distributed_ntt(values, root: int, mesh: Mesh):
     """Convenience wrapper building the tables inline (tests, eager use)."""
     n = int(values.shape[1])
-    tables = make_dntt_tables(n, root, mesh, values.device, kernel)
+    tables = make_dntt_tables(n, root, mesh, values.device)
     return distributed_ntt_with(values, tables, mesh)
 
 
 def distributed_coset_evaluate(coeffs, offset: int, root: int, length: int,
-                               mesh: Mesh, kernel: bool = False):
+                               mesh: Mesh):
     """Sharded coset LDE evaluate: scale by offset powers, then the
     distributed transform of the (implicitly zero-padded) rows."""
     d = int(coeffs.shape[1])
     scaled = f.mul(coeffs, nt.scale_table(offset, d, coeffs.device))
-    tables = make_dntt_tables(length, root, mesh, coeffs.device, kernel)
+    tables = make_dntt_tables(length, root, mesh, coeffs.device)
     return distributed_ntt_with(scaled, tables, mesh)

@@ -10,11 +10,10 @@ group:
   - all codeword-scale math (LDE NTTs, extension scans, constraint
     evaluation, zerofier inversion, nonlinear combination, FRI folds) runs
     as int64 tensor programs on `device` (CUDA unless the caller asks for
-    the CPU); on a CUDA device (`ntt_backend` "auto" or "mxu") every LDE
-    transform, the tables' INTTs and the forward NTT of both stages or of
-    every streamed class, is the four-step transform on kernels B2/B3
-    (`ops/kernel_ntt.py`); "u64", and "auto" on the CPU, keep the u64
-    butterfly network of `ops/ntt.py`;
+    the CPU); every LDE transform, the tables' INTTs and the forward NTT of
+    both stages or of every streamed class, is the four-step transform of
+    `ops/kernel_ntt.py`: kernels B2/B3 on a CUDA device, their plain
+    versions on the CPU, whatever `ntt_backend` says;
   - from `device_commit_min` up, every commitment is a device Merkle tree
     hashed by kernel B1; below it the trees are built on the host;
   - from FRI domains of `stream_min` up the prover is streamed: whole base
@@ -375,16 +374,12 @@ class BrainfuckStark:
                 and self.mesh.shardable(self.fri.domain.length))
 
     def _ntt_path(self) -> str:
-        """The LDE transforms that `ntt_backend` resolves to: the four-step
-        transform on kernels B2/B3 for "mxu" (their plain torch versions on
-        the CPU) and for "auto" on a CUDA device; the u64 butterfly network
-        for "u64" and for "auto" on any other device. Under a mesh the same
-        names the local route of the distributed transform's two DFTs."""
-        backend = self.config.ntt_backend
-        cuda = self.device.type == "cuda"
-        if backend == "u64" or (backend == "auto" and not cuda):
-            return "u64-torch"
-        return "four-step-cuda" if cuda else "four-step-plain"
+        """The route of every transform, which the device alone decides:
+        kernels B2/B3 on a CUDA device, their plain versions elsewhere.
+        Under a mesh the same names the local route of the distributed
+        transform's two DFTs."""
+        return ("four-step-cuda" if self.device.type == "cuda"
+                else "four-step-plain")
 
     def _mesh_ntt_path(self) -> str:
         """`_ntt_path`, with what a mesh adds: `dntt-mesh` for the
@@ -398,41 +393,25 @@ class BrainfuckStark:
         return f"{how}:{self._ntt_path()}"
 
     def _lde_packs(self):
-        """NTT twiddle and coset scale tables on the device, cached per
-        resolved NTT path. On the four-step paths the tables' INTTs are
-        kernel plans too, where the height has one (2 and up)."""
-        path = self._ntt_path()
+        """NTT plans and coset scale tables on the device, built once per
+        prover: the forward N-point plan (or a mesh rank's tables of the
+        distributed transform) and each table's INTT plan."""
         cache = getattr(self, "_packs_cache", None)
-        if cache is not None and cache[0] == path:
-            return cache[1]
+        if cache is not None:
+            return cache
         dev = self.device
         fri = self.fri
         N = fri.domain.length
-        dntt = None
-        if self.use_stream:
-            # a streamed prove runs no N-point transform (size-S class NTTs
-            # and height-sized INTTs only): its tables are `_stream_plan`'s
-            fwd = None
-        elif self.mesh is not None and dn.divides(N, self.mesh.world):
+        # a streamed prove runs no N-point transform (size-S class NTTs and
+        # height-sized INTTs only): its tables are `_stream_plan`'s
+        fwd = dntt = None
+        if self.mesh is not None and dn.divides(N, self.mesh.world):
             # the rank's tables of the distributed transform: no N-point
-            # pack and no N-word twiddle table
-            fwd = None
-            dntt = dn.make_dntt_tables(
-                N, fri.domain.omega, self.mesh, dev,
-                kernel=path != "u64-torch",
-            )
-        elif path == "u64-torch":
-            fwd = nt.make_pack(N, fri.domain.omega, False, dev)
-        else:
+            # plan and no N-word twiddle table (a mesh never streams)
+            dntt = dn.make_dntt_tables(N, fri.domain.omega, self.mesh, dev)
+        elif not self.use_stream:
             # the kernel plan covers every domain up to 2^26 (or raises)
-            # and nothing falls back
             fwd = kn.make_kernel_plan(N, fri.domain.omega, False, dev)
-
-        def intt(t):
-            if path == "u64-torch" or t.height < 2:
-                return nt.make_pack(t.height, t.omicron, True, dev)
-            return kn.make_kernel_plan(t.height, t.omicron, True, dev)
-
         packs = {
             "fwd": fwd,
             "dntt": dntt,
@@ -441,7 +420,7 @@ class BrainfuckStark:
             ),
             "tables": tuple(
                 (
-                    intt(t),
+                    kn.make_kernel_plan(t.height, t.omicron, True, dev),
                     nt.scale_table(
                         fri.domain.offset, t.height + t.num_randomizers, dev
                     ),
@@ -451,7 +430,7 @@ class BrainfuckStark:
                 for t in self.tables
             ),
         }
-        self._packs_cache = (path, packs)
+        self._packs_cache = packs
         return packs
 
     # -- prover stages -------------------------------------------------------
@@ -475,13 +454,13 @@ class BrainfuckStark:
     def _forward_lde(self, groups, packs):
         """The shared forward NTT of an LDE stage over coefficient groups of
         different lengths (zero past their own): on one device the groups
-        are padded to the domain and go through `forward_ntt`; under a mesh
+        are padded to the domain and go through `ntt_kernel`; under a mesh
         they go through the distributed transform and the rank's block
         (rows, N/D) comes back."""
         N = self.fri.domain.length
         if packs["dntt"] is not None:
             return dn.distributed_ntt_with(groups, packs["dntt"], self.mesh)
-        all_cws = kn.forward_ntt(
+        all_cws = kn.ntt_kernel(
             torch.cat([nt._pad_to(g, N) for g in groups], dim=0), packs["fwd"]
         )
         return codeword_block(self.mesh, all_cws, 1).contiguous()
@@ -738,14 +717,13 @@ class BrainfuckStark:
     # classes go through `_acc_group` as the resident path does).
 
     def _stream_plan(self):
-        """B, S and the size-S transform's tables, cached per NTT path. A
+        """B, S and the size-S transform's plan, built once per prover. A
         "group" key set on the cached plan fixes the classes a dispatch of
         the commit passes and the reopen (`stream.group_size_for`), as the
         JAX package's plan does."""
-        path = self._ntt_path()
         cache = getattr(self, "_splan_cache", None)
-        if cache is not None and cache[0] == path:
-            return cache[1]
+        if cache is not None:
+            return cache
         N = self.fri.domain.length
         # B must divide every table's unit distance N/height, so that the
         # transition's row shift stays within a class
@@ -754,12 +732,9 @@ class BrainfuckStark:
             if t.height > 0:
                 B = min(B, t.unit_distance(N))
         B = max(B, 2)
-        plan = make_stream_plan(
-            N, B, self.fri.domain.omega, self.device,
-            kernel_ntt=path != "u64-torch",
-        )
-        self._splan_cache = (path, plan)
-        return plan
+        self._splan_cache = make_stream_plan(N, B, self.fri.domain.omega,
+                                             self.device)
+        return self._splan_cache
 
     def _claim_key(self) -> str:
         return proof_key(

@@ -15,10 +15,9 @@ NTT: with x_i = offset·ω^i and i = b + B·q,
 ω^B being a primitive S-th root. So per class: one (1, d) geometric scale
 row, a segment fold, and one batched size-S NTT; the coefficient rows (of
 the trace's height, small) are the only state that persists. That NTT is
-the forward LDE transform at size S, so it runs where `ntt_backend` sends
-the resident one: kernels B2/B3 on a CUDA device ("auto", "mxu"), the u64
-network under "u64" and on the CPU under "auto"
-(`ops/kernel_ntt.forward_ntt`).
+the forward LDE transform at size S, on the same kernel plan as every
+other transform of the port (`ops/kernel_ntt.ntt_kernel`: B2/B3 on a CUDA
+device, their plain versions on the CPU).
 
 Merkle accumulation: adjacent leaves 2t, 2t+1 live in classes (r, r+1) at
 the same position q, so taking the classes in order 0..B-1 and combining
@@ -98,7 +97,7 @@ def group_values(groups: Sequence, wbs, scale_len: int, pack_S, S: int):
 
     groups: (rows_g, d_g) int64 tensors (c_k·offset^k, the prescaling of
     `lde_coefficients_unpadded`). wbs: (G,) tensor of the classes' ω^b.
-    pack_S: the size-S tables of `make_stream_plan`. Returns the
+    pack_S: the size-S plan of `make_stream_plan`. Returns the
     (G, Σ rows_g, S) values, class j's block at [j], groups concatenated,
     in position order q = 0..S-1 (leaf index b0 + j + B·q)."""
     G = int(wbs.shape[0])
@@ -110,7 +109,7 @@ def group_values(groups: Sequence, wbs, scale_len: int, pack_S, S: int):
         scaled = f.mul(g, scale[:, None, :d])  # (G, rows, d)
         folded.append(
             fold_mod(scaled.reshape(G * rows, d), S).reshape(G, rows, S))
-    return kn.forward_ntt(torch.cat(folded, dim=1), pack_S)
+    return kn.ntt_kernel(torch.cat(folded, dim=1), pack_S)
 
 
 def block_values(groups: Sequence, wb, scale_len: int, pack_S, S: int):
@@ -341,16 +340,9 @@ def reopen_rows(groups, plan):
     return rows_for_positions
 
 
-def make_stream_plan(N: int, B: int, omega: int, device=None,
-                     kernel_ntt: bool = False):
+def make_stream_plan(N: int, B: int, omega: int, device=None):
     """Shared per-domain tables of streamed evaluation: the size-S forward
-    transform with root ω^B, as a u64 pack of `ops/ntt.py` or, with
-    `kernel_ntt` (the prover's four-step paths: "mxu", and "auto" on a CUDA
-    device), as a four-step plan of kernels B2/B3."""
+    transform with root ω^B, a plan of `ops/kernel_ntt.py`."""
     S = N // B
-    root = f.h_pow(omega, B)
-    if kernel_ntt:
-        pack_S = kn.make_kernel_plan(S, root, False, device)
-    else:
-        pack_S = nt.make_pack(S, root, False, device)
+    pack_S = kn.make_kernel_plan(S, f.h_pow(omega, B), False, device)
     return {"N": N, "B": B, "S": S, "pack_S": pack_S, "omega": omega}

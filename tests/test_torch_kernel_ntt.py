@@ -21,12 +21,12 @@ import torch
 
 from stark_brainfuck_tpu.ops import field as jf
 from stark_brainfuck_tpu.ops import limb as L
+from stark_brainfuck_tpu.ops import ntt as jnt
 from stark_brainfuck_tpu.ops import pallas_ntt as PN
 from stark_brainfuck_tpu_torch.convert import tensor_to_u64 as U
 from stark_brainfuck_tpu_torch.convert import u64_to_tensor as T
 from stark_brainfuck_tpu_torch.ops import field as tf
 from stark_brainfuck_tpu_torch.ops import kernel_ntt as K
-from stark_brainfuck_tpu_torch.ops import ntt as tnt
 
 torch.set_num_threads(1)
 
@@ -130,14 +130,14 @@ def test_ntt_kernel_matches_ntt_pallas_interpret(logn, inverse):
     assert np.array_equal(U(K.ntt_kernel(T(v[None]), plan))[0], want)
 
 
-@pytest.mark.parametrize("logn", [1, *range(5, 27)])
+@pytest.mark.parametrize("logn", [0, 1, *range(5, 27)])
 def test_plan_geometry_invariants_and_exactness(logn):
     """The port's own four-step split: r·c = n, both within a block's
     reach, c >= 128 for B3's factored table, c <= r so the strided pass is
-    the shorter one; and the transform equals the u64 network on a table's
-    batch of rows (n <= 2^16, forward and inverse: the tables' INTTs),
-    `forward_ntt` dispatches the plan, and the inverse undoes the forward
-    transform."""
+    the shorter one (n = 1, a table of height 1, is one sub-transform, the
+    identity); and the transform equals the JAX package's u64 network on a
+    table's batch of rows (n <= 2^16, forward and inverse: the tables'
+    INTTs), and the inverse undoes the forward transform."""
     n = 1 << logn
     root = jf.primitive_nth_root(n)
     r, c = K.plan_geometry(n)
@@ -162,15 +162,14 @@ def test_plan_geometry_invariants_and_exactness(logn):
         assert tuple(kp.tw_hi.shape) == (c // 128, r)
         assert tuple(kp.tw_lo.shape) == (128, r)
     if logn <= 16:
-        v = T(_inputs(9, n, logn))
+        v = _inputs(9, n, logn)
         got = {}
         for inverse in (False, True):
             plan = K.make_kernel_plan(n, root, inverse)
-            want = tnt.ntt_with(v, tnt.make_pack(n, root, inverse))
-            got[inverse] = K.ntt_kernel(v, plan)
-            assert torch.equal(got[inverse], want)
-            assert torch.equal(K.forward_ntt(v, plan), want)
-        assert torch.equal(K.ntt_kernel(got[True], kp), v)
+            want = jnt.ntt_with(v, jnt.make_pack(n, root, inverse, np), np)
+            got[inverse] = K.ntt_kernel(T(v), plan)
+            assert np.array_equal(U(got[inverse]), want)
+        assert np.array_equal(U(K.ntt_kernel(got[True], kp)), v)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from stark_brainfuck_tpu.ops import ntt as jn
 from stark_brainfuck_tpu.ops import scan as js
 from stark_brainfuck_tpu_torch.convert import tensor_to_u64 as U
 from stark_brainfuck_tpu_torch.convert import u64_to_tensor as T
+from stark_brainfuck_tpu_torch.ops import kernel_ntt as kn
 from stark_brainfuck_tpu_torch.ops import ntt as tn
 from stark_brainfuck_tpu_torch.ops import scan as ts
 
@@ -19,14 +20,17 @@ P = jf.P
 
 @pytest.mark.parametrize("n", [1, 2, 16, 1024, 1 << 14, 1 << 15])
 def test_ntt_and_intt_match(n):
-    """Small packs below FOUR_STEP_MIN, four-step packs from it up."""
+    """The kernel plan (one sub-transform up to SUB_MAX, composed from it
+    up; a one-point plan is the identity) against the JAX package's
+    network."""
     rng = np.random.default_rng(n)
     v = rng.integers(0, P, size=(3, n), dtype=np.uint64)
     root = jf.primitive_nth_root(n)
-    fwd = tn.make_pack(n, root, False)
-    assert isinstance(fwd, tn.FourStepPack) == (n >= tn.FOUR_STEP_MIN)
+    fwd = kn.make_kernel_plan(n, root, False)
+    assert (fwd.sub_c is not None) == (n > kn.SUB_MAX)
     want = jn.ntt_with(v, jn.make_pack(n, root, False, np), np)
-    assert np.array_equal(want, U(tn.ntt_with(T(v), fwd)))
+    assert np.array_equal(want, U(kn.ntt_kernel(T(v), fwd)))
+    assert np.array_equal(want, U(tn.ntt(T(v), root)))
     assert np.array_equal(jn.intt(v, root, np), U(tn.intt(T(v), root)))
     assert np.array_equal(U(tn.intt(tn.ntt(T(v), root), root)), v)
 
@@ -40,7 +44,7 @@ def test_lde_coefficients_and_columns_match(H, R):
     tr = rng.integers(0, P, size=(4, H), dtype=np.uint64)
     r = rng.integers(0, P, size=(4, R), dtype=np.uint64) if R else None
     ipk_j = jn.make_pack(H, om, True, np)
-    ipk_t = tn.make_pack(H, om, True)
+    ipk_t = kn.make_kernel_plan(H, om, True)
     want = jn.lde_coefficients(tr, r, ipk_j, jn.scale_table(7, H + R, np), N, np)
     got = tn.lde_coefficients(
         T(tr), None if r is None else T(r), ipk_t, tn.scale_table(7, H + R), N
@@ -51,7 +55,7 @@ def test_lde_coefficients_and_columns_match(H, R):
     want = jn.lde_xcolumns(xt, xr, om, 7, w, N, np)
     got = tn.lde_xcolumns_with(
         T(xt), None if xr is None else T(xr), ipk_t, tn.scale_table(7, H + R),
-        tn.make_pack(N, w), N,
+        kn.make_kernel_plan(N, w), N,
     )
     assert np.array_equal(want, U(got))
 

@@ -32,7 +32,9 @@ from stark_brainfuck_tpu_torch.parallel.multihost import spawn_ranks
 torch.set_num_threads(1)
 
 WORLDS = (2, 4, 8)
-ROUTES = ("u64", "kernel")  # kernel: B2's (and B3's) plain versions here
+# the distributed transform's input: one (3, n) tensor of full rows, or the
+# prover's form, groups of different widths (zero past their own)
+FORMS = ("rows", "groups")
 SEED = 41
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -77,6 +79,12 @@ def _stark(key, backend="auto", ranks=1, seed="own"):
 # ---------------------------------------------------------------------------
 
 
+def _groups(x):
+    """The rows of x (3, n) as three groups of widths n, n/2 + 3 and 5."""
+    n = int(x.shape[1])
+    return [x[:1], x[1:2, : n // 2 + 3], x[2:, :5]]
+
+
 def _dntt_jobs(mesh, out):
     from stark_brainfuck_tpu_torch.ops import kernel_ntt as kn
     from stark_brainfuck_tpu_torch.parallel import dntt
@@ -86,46 +94,54 @@ def _dntt_jobs(mesh, out):
         n = 1 << logn
         x = u64_to_tensor(_field(rng, (3, n)))
         root = f.primitive_nth_root(n)
-        for route in ROUTES:
-            got = dntt.distributed_ntt(x, root, mesh, kernel=route == "kernel")
-            out["dntt", logn, route] = tensor_to_u64(got)
-    coeffs = u64_to_tensor(_field(rng, (2, 200)))
-    for route in ROUTES:
+        out["dntt", logn, "rows"] = tensor_to_u64(
+            dntt.distributed_ntt(x, root, mesh))
+        tables = dntt.make_dntt_tables(n, root, mesh)
+        out["dntt", logn, "groups"] = tensor_to_u64(
+            dntt.distributed_ntt_with(_groups(x), tables, mesh))
+    coeffs = _field(rng, (2, 1 << 10))
+    for d in (200, 1 << 10):
         got = dntt.distributed_coset_evaluate(
-            coeffs, f.GENERATOR, f.primitive_nth_root(1 << 10), 1 << 10, mesh,
-            kernel=route == "kernel")
-        out["coset", route] = tensor_to_u64(got)
+            u64_to_tensor(coeffs[:, :d]), f.GENERATOR,
+            f.primitive_nth_root(1 << 10), 1 << 10, mesh)
+        out["coset", d] = tensor_to_u64(got)
     # the B3 route of the twiddle step needs 128 columns a rank: 2^20 on 8
     # ranks has them, one row is enough
     n = 1 << 16 if mesh.world == 2 else 1 << 18 if mesh.world == 4 else 1 << 20
-    tables = dntt.make_dntt_tables(n, f.primitive_nth_root(n), mesh,
-                                   kernel=True)
-    plain = dntt.make_dntt_tables(n, f.primitive_nth_root(n), mesh)
+    root = f.primitive_nth_root(n)
+    tables = dntt.make_dntt_tables(n, root, mesh)
+    R, C = tables.R, tables.C
+    lo, hi = mesh.block(C)
+    # the same tables with the twiddle step as a field multiply by the
+    # rank's plain columns
+    columns = dntt.twiddle_columns(root, lo, hi, R)
+    plain = tables._replace(twiddle=columns, twiddle_plan=None)
     x = u64_to_tensor(_field(rng, (1, 3000)))
     out["b3_route"] = {
         "uses_b3": tables.twiddle_plan is not None and tables.twiddle is None,
-        "columns": tables.C // mesh.world,
+        "columns": C // mesh.world,
         "equal": bool(torch.equal(
             dntt.distributed_ntt_with(x, tables, mesh),
             dntt.distributed_ntt_with(x, plain, mesh))),
     }
     # the two local DFTs alone, B2's strided form (its plain version here)
-    # against the u64 network, and B3's offset tables against the rank's
-    # plain twiddle columns
-    R, cl, rd = tables.R, tables.C // mesh.world, tables.R // mesh.world
-    for transposed, pack_k, pack_u, (m, v) in (
-            (True, tables.pack_r, plain.pack_r, (R, cl)),
-            (False, tables.pack_c, plain.pack_c, (tables.C, rd))):
+    # against the radix-2 network on the moved axis, and B3's offset tables
+    # against the rank's plain twiddle columns
+    cl, rd = C // mesh.world, R // mesh.world
+    for transposed, plan, (m, v) in ((True, tables.pack_r, (R, cl)),
+                                     (False, tables.pack_c, (C, rd))):
         x = u64_to_tensor(_field(rng, (2, m, v)))
-        got = dntt._dft_middle(x, pack_k, transposed)
-        want = dntt._dft_middle(x, pack_u, transposed)
+        got = dntt._dft_middle(x, plan, transposed)
+        pack = kn.make_network_pack(m, f.h_pow(root, n // m))
+        want = kn.network_ntt(x.transpose(1, 2), pack)  # (2, v, m)
+        want = want if transposed else want.transpose(1, 2)
         out["dft_middle", transposed] = {
             "shape": tuple(got.shape), "contiguous": got.is_contiguous(),
             "equal": bool(torch.equal(got, want))}
     y = u64_to_tensor(_field(rng, (2 * cl, R)))
     out["b3_tables"] = bool(torch.equal(
         kn.twiddle_outer(y, tables.twiddle_plan).view(2, cl, R),
-        f.mul(y.view(2, cl, R), plain.twiddle[None])))
+        f.mul(y.view(2, cl, R), columns[None])))
 
 
 def _roll_jobs(mesh, out):
@@ -315,31 +331,37 @@ def _reference_proofs(key):
 # -- (a) the distributed transform --------------------------------------------
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("logn", [10, 12])
 @pytest.mark.parametrize("world", WORLDS)
-def test_distributed_ntt_matches_jax(ranks, world, logn, route):
+def test_distributed_ntt_matches_jax(ranks, world, logn, form):
     _, jnt = _jax()
     rng = np.random.default_rng(SEED)
     xs = {ln: _field(rng, (3, 1 << ln)) for ln in (10, 12)}
     n = 1 << logn
+    x = xs[logn]
+    if form == "groups":
+        x = np.zeros_like(x)
+        for i, g in enumerate(_groups(xs[logn])):
+            x[i, : g.shape[1]] = g[0]
     got = blocks_to_global(
-        [r["dntt", logn, route] for r in ranks[world]], axis=1)
+        [r["dntt", logn, form] for r in ranks[world]], axis=1)
     assert got.shape == (3, n)
-    want = np.asarray(jnt.ntt(xs[logn], f.primitive_nth_root(n), np))
+    want = np.asarray(jnt.ntt(x, f.primitive_nth_root(n), np))
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("d", [200, 1 << 10], ids=["d200", "d1024"])
 @pytest.mark.parametrize("world", WORLDS)
-def test_distributed_coset_evaluate_matches_jax(ranks, world, route):
+def test_distributed_coset_evaluate_matches_jax(ranks, world, d):
+    """Fewer coefficients than points (zero-padded), and as many."""
     _, jnt = _jax()
     rng = np.random.default_rng(SEED)
     for ln in (10, 12):
         _field(rng, (3, 1 << ln))
-    coeffs = _field(rng, (2, 200))
+    coeffs = _field(rng, (2, 1 << 10))[:, :d]
     n = 1 << 10
-    got = blocks_to_global([r["coset", route] for r in ranks[world]], axis=1)
+    got = blocks_to_global([r["coset", d] for r in ranks[world]], axis=1)
     want = np.asarray(jnt.coset_evaluate(
         coeffs, f.GENERATOR, f.primitive_nth_root(n), n, np))
     assert np.array_equal(got, want)
@@ -462,9 +484,8 @@ def test_mesh_proof_bytes_equal_single_device_and_jax(ranks, world, key,
     assert got[0]["proof"] == pj, "differs from the JAX numpy proof"
     want = hashlib.sha256(pt).hexdigest()
     assert [g["digest"] for g in got] == [want] * world
-    local = "four-step-plain" if backend == "mxu" else "u64-torch"
     for rank, g in enumerate(got):
-        assert g["ntt_path"] == f"dntt-mesh:{local}"
+        assert g["ntt_path"] == "dntt-mesh:four-step-plain"
         assert (g["mesh"]["world"], g["mesh"]["rank"]) == (world, rank)
         assert g["mesh"]["backend"] == "gloo"
         assert g["mesh"]["devices"] == ["cpu"] * world
@@ -492,7 +513,7 @@ def test_mesh_of_one_rank_is_the_single_device_prover():
     assert bfs.mesh is None
     assert bfs.prove(*args) == pt == pj
     assert bfs.last_metrics["mesh"] is None
-    assert bfs.last_metrics["ntt_path"] == "u64-torch"
+    assert bfs.last_metrics["ntt_path"] == "four-step-plain"
 
 
 @pytest.mark.parametrize("world", WORLDS)

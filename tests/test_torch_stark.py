@@ -51,62 +51,24 @@ def _setup(key):
     return make, args
 
 
-def _proofs(key):
-    """(jax stark, jax proof, port stark, port proof), computed once."""
-    if key not in _CACHE:
+def _proofs(key, backend="auto"):
+    """(jax stark, jax proof, port stark, port proof) with the port
+    configured with `backend`, computed once."""
+    if (key, backend) not in _CACHE:
         make, args = _setup(key)
-        jb = make(J)
-        tb = make(TP, device="cpu")
-        _CACHE[key] = (jb, jb.prove(*args, xp=np), tb, tb.prove(*args))
-    return _CACHE[key]
+        if backend == "auto":
+            jb = make(J)
+            pj = jb.prove(*args, xp=np)
+        else:
+            jb, pj, _, _ = _proofs(key)
+        tb = make(TP, device="cpu", config={"ntt_backend": backend})
+        _CACHE[key, backend] = (jb, pj, tb, tb.prove(*args))
+    return _CACHE[key, backend]
 
 
-def _mxu_proof(key):
-    """(port stark, port proof) with ntt_backend="mxu", computed once."""
-    if ("mxu", key) not in _CACHE:
-        make, args = _setup(key)
-        tb = make(TP, device="cpu", config={"ntt_backend": "mxu"})
-        _CACHE["mxu", key] = (tb, tb.prove(*args))
-    return _CACHE["mxu", key]
-
-
-@pytest.mark.parametrize("key", list(PROGRAMS))
-def test_seeded_proof_bytes_equal_jax(key):
-    jb, pj, tb, pt = _proofs(key)
-    assert pt == pj
-    if key == "device_commit":
-        assert tb.fri.domain.length >= tb.config.device_commit_min
-        assert tb.last_metrics["hash_path"] == "torch-plain"
-
-
-@pytest.mark.parametrize("key", list(PROGRAMS))
-def test_proofs_cross_verify(key):
-    jb, pj, tb, pt = _proofs(key)
-    assert tb.verify(pj), tb.last_rejection
-    assert jb.verify(pt), jb.last_rejection
-
-
-# what `ntt_backend` resolves to on each device: "auto" is the four-step
-# transform on a CUDA device and the u64 network elsewhere
-NTT_PATHS = {
-    ("auto", "cpu"): "u64-torch", ("auto", "cuda"): "four-step-cuda",
-    ("u64", "cpu"): "u64-torch", ("u64", "cuda"): "u64-torch",
-    ("mxu", "cpu"): "four-step-plain", ("mxu", "cuda"): "four-step-cuda",
-}
-
-
-@pytest.mark.parametrize("backend,device", list(NTT_PATHS))
-def test_ntt_path_resolution(backend, device):
-    """`_ntt_path` reads only the configured backend and the device's type,
-    so a stub holding the two stands for a prover (no card needed)."""
-    stub = SimpleNamespace(config=SimpleNamespace(ntt_backend=backend),
-                           device=torch.device(device))
-    assert TP.BrainfuckStark._ntt_path(stub) == NTT_PATHS[backend, device]
-
-
-def _assert_table_intts(tb, kernel: bool):
-    """Every table of height 2 and up takes its INTT through a kernel plan
-    on the four-step paths (`kernel`) and through a u64 pack elsewhere."""
+def _assert_table_intts(tb):
+    """Every table of height 1 and up takes its INTT through a kernel plan
+    of its height."""
     packs = tb._lde_packs()["tables"]
     assert max(t.height for t in tb.tables) >= 2
     for t, tp in zip(tb.tables, packs):
@@ -114,37 +76,62 @@ def _assert_table_intts(tb, kernel: bool):
             assert tp is None
             continue
         plan = tp[0]
-        assert isinstance(plan, KernelNttPlan) == (kernel and t.height >= 2)
-        if isinstance(plan, KernelNttPlan):
-            assert plan.n == t.height
+        assert isinstance(plan, KernelNttPlan) and plan.n == t.height
 
 
+# every program on the default backend, and two of them configured with
+# the other accepted values: every value gives the JAX proof's bytes.
 # plus4: a single sub-NTT (N <= 2^13); device_commit: N = 2^14, the
-# composed four-step path with r = c = 128
-MXU_GEOMETRY = {"plus4": False, "device_commit": True}
+# composed four-step plan with r = c = 128
+BACKEND_CASES = [pytest.param(k, "auto", id=k) for k in PROGRAMS] + [
+    pytest.param("plus4", "mxu", id="plus4-mxu"),
+    pytest.param("device_commit", "u64", id="device_commit-u64"),
+]
+COMPOSED = {"plus4": False, "io": False, "loop": False, "device_commit": True}
 
 
-@pytest.mark.parametrize("key", list(MXU_GEOMETRY))
-def test_mxu_seeded_proof_bytes_equal_jax(key):
-    _, pj, tb0, _ = _proofs(key)
-    tb, pt = _mxu_proof(key)
+@pytest.mark.parametrize("key,backend", BACKEND_CASES)
+def test_seeded_proof_bytes_equal_jax(key, backend):
+    jb, pj, tb, pt = _proofs(key, backend)
     assert pt == pj
+    assert tb.config.ntt_backend == backend
     assert tb.last_metrics["ntt_path"] == "four-step-plain"
-    assert tb0.last_metrics["ntt_path"] == "u64-torch"
     plan = tb._lde_packs()["fwd"]
-    assert (plan.sub_c is not None) == MXU_GEOMETRY[key]
-    if MXU_GEOMETRY[key]:
+    assert plan.n == tb.fri.domain.length
+    assert (plan.sub_c is not None) == COMPOSED[key]
+    if COMPOSED[key]:
         assert (plan.r, plan.c) == (128, 128)
-    _assert_table_intts(tb, kernel=True)
-    _assert_table_intts(tb0, kernel=False)
+    _assert_table_intts(tb)
+    if key == "device_commit":
+        assert tb.fri.domain.length >= tb.config.device_commit_min
+        assert tb.last_metrics["hash_path"] == "torch-plain"
 
 
-@pytest.mark.parametrize("key", list(MXU_GEOMETRY))
-def test_mxu_proofs_cross_verify(key):
-    jb, pj, _, _ = _proofs(key)
-    tb, pt = _mxu_proof(key)
+@pytest.mark.parametrize("key,backend", BACKEND_CASES)
+def test_proofs_cross_verify(key, backend):
+    jb, pj, tb, pt = _proofs(key, backend)
     assert tb.verify(pj), tb.last_rejection
     assert jb.verify(pt), jb.last_rejection
+
+
+# the device alone decides the route of every transform: every
+# `ntt_backend` value runs the four-step plan, B2/B3 on a CUDA device and
+# their plain versions elsewhere
+NTT_PATHS = {
+    (backend, device): ("four-step-cuda" if device == "cuda"
+                        else "four-step-plain")
+    for backend in ("auto", "u64", "mxu") for device in ("cpu", "cuda")
+}
+
+
+@pytest.mark.parametrize("backend,device", list(NTT_PATHS))
+def test_ntt_path_resolution(backend, device):
+    """`_ntt_path` reads only the device's type, so a stub holding the
+    configured backend and the device stands for a prover (no card
+    needed)."""
+    stub = SimpleNamespace(config=SimpleNamespace(ntt_backend=backend),
+                           device=torch.device(device))
+    assert TP.BrainfuckStark._ntt_path(stub) == NTT_PATHS[backend, device]
 
 
 # streamed (strided-class) proves: `stream_min=1` sends every domain down the
@@ -180,10 +167,10 @@ def test_streamed_proof_bytes_equal_jax_and_resident(key, backend):
         4, tb.fri.domain.length // 4)
     # the JAX rule groups all 4 classes of a block this small
     assert m["stream_group"] == 4
-    assert m["ntt_path"] == (
-        "four-step-plain" if backend == "mxu" else "u64-torch")
-    assert tb._lde_packs()["fwd"] is None, "a streamed prove needs no N pack"
-    _assert_table_intts(tb, kernel=backend == "mxu")
+    assert m["ntt_path"] == "four-step-plain"
+    assert tb._lde_packs()["fwd"] is None, "a streamed prove needs no N plan"
+    assert tb._stream_plan()["pack_S"].n == tb.fri.domain.length // 4
+    _assert_table_intts(tb)
     for stage in ("stage_a (base coeffs)", "base merkle (streamed)",
                   "stage_b (ext coeffs)", "ext merkle (streamed)",
                   "reopen (streamed 2nd pass)"):

@@ -36,7 +36,7 @@ U64 = np.uint64
 KEY = b"0123456789abcdef"
 
 
-def _setup(N=2048, B=8, seed=0, kernel_ntt=False):
+def _setup(N=2048, B=8, seed=0):
     """Random offset-prescaled coefficient groups (one longer than S for
     every B here, one ragged, one tiny), the full-domain codeword rows they
     evaluate to, and both packages' stream plans."""
@@ -56,7 +56,7 @@ def _setup(N=2048, B=8, seed=0, kernel_ntt=False):
         rows_full.append(jnt.ntt_with(padded, pack_N, np))
     zipped = np.ascontiguousarray(np.concatenate(rows_full, axis=0).T)
     plan_j = jstream.make_stream_plan(N, B, omega, np)
-    plan_t = ts.make_stream_plan(N, B, omega, "cpu", kernel_ntt=kernel_ntt)
+    plan_t = ts.make_stream_plan(N, B, omega, "cpu")
     return tuple(groups_np), groups_to_tensors(groups_np), zipped, plan_j, plan_t
 
 
@@ -74,12 +74,15 @@ def test_fold_mod_matches_jax(d, S):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("kernel_ntt", [False, True], ids=["u64", "mxu"])
+@pytest.mark.parametrize("N", [2048, 1 << 16], ids=["N2048", "N65536"])
 @pytest.mark.parametrize("B", [2, 8])
-def test_block_values_match_jax_and_the_codeword(B, kernel_ntt):
-    gj, gt, zipped, plan_j, plan_t = _setup(B=B, kernel_ntt=kernel_ntt)
+def test_block_values_match_jax_and_the_codeword(B, N):
+    """At N = 2^16 the class transform is the composed plan (B = 2, S =
+    2^15) or one sub-transform of SUB_MAX points (B = 8); at N = 2^11 one
+    small sub-transform."""
+    gj, gt, zipped, plan_j, plan_t = _setup(N=N, B=B)
     S = plan_t["S"]
-    assert isinstance(plan_t["pack_S"], kn.KernelNttPlan) == kernel_ntt
+    assert (plan_t["pack_S"].sub_c is not None) == (S > kn.SUB_MAX)
     scale_len = max(g.shape[1] for g in gj)
     for b in (0, 1, B - 1):
         wb = np.asarray([jf.h_pow(plan_j["omega"], b)], dtype=U64)
@@ -93,20 +96,21 @@ def test_block_values_match_jax_and_the_codeword(B, kernel_ntt):
         assert np.array_equal(got.T, zipped[b::B])
 
 
+# N = 2^15 in 2 classes: S = 2^14, the composed plan (c = r = 128)
 CASES = [
-    pytest.param(2, False, False, id="plain-B2"),
-    pytest.param(8, False, False, id="plain-B8"),
-    pytest.param(4, True, False, id="salted-B4"),
-    pytest.param(8, False, True, id="plain-B8-mxu"),
-    pytest.param(4, True, True, id="salted-B4-mxu"),
+    pytest.param(2, False, 2048, id="plain-B2"),
+    pytest.param(8, False, 2048, id="plain-B8"),
+    pytest.param(4, True, 2048, id="salted-B4"),
+    pytest.param(2, False, 1 << 15, id="plain-B2-N32768"),
+    pytest.param(2, True, 1 << 15, id="salted-B2-N32768"),
 ]
 # the query sets of tests/test_stream.py
 PLAIN_IDX = [0, 1, 5, 1023, 2047, 777]
 SALTED_IDX = [3, 512, 2046]
 
 
-def _trees(B, salted, kernel_ntt):
-    gj, gt, zipped, plan_j, plan_t = _setup(B=B, kernel_ntt=kernel_ntt)
+def _trees(B, salted, N):
+    gj, gt, zipped, plan_j, plan_t = _setup(N=N, B=B)
     key = KEY if salted else None
     jax_tree = jstream.streamed_commit(gj, key, plan_j, np)
     streamed = ts.streamed_commit(gt, key, plan_t)
@@ -122,10 +126,10 @@ def _resident(zipped, salted):
     return DeviceMerkle(rows, cut=2)
 
 
-@pytest.mark.parametrize("B,salted,kernel_ntt", CASES)
-def test_streamed_tree_matches_jax_and_resident(B, salted, kernel_ntt):
+@pytest.mark.parametrize("B,salted,N", CASES)
+def test_streamed_tree_matches_jax_and_resident(B, salted, N):
     gj, gt, plan_j, plan_t, jax_tree, streamed, resident = _trees(
-        B, salted, kernel_ntt
+        B, salted, N
     )
     assert streamed.root() == jax_tree.root() == resident.root()
     # the accumulator's top digests, through convert, are JAX's levels[0]
@@ -150,7 +154,7 @@ def test_streamed_tree_matches_jax_and_resident(B, salted, kernel_ntt):
 
 @pytest.mark.parametrize("salted", [False, True], ids=["plain", "salted"])
 def test_open_before_resolve_raises(salted):
-    _, gt, _, plan_t, _, streamed, _ = _trees(4, salted, False)
+    _, gt, _, plan_t, _, streamed, _ = _trees(4, salted, 2048)
     with pytest.raises(RuntimeError, match="resolve"):
         streamed.prefetch([7])
     with pytest.raises(RuntimeError, match="resolve"):
@@ -164,7 +168,7 @@ def test_open_before_resolve_raises(salted):
 
 
 def test_resolve_asks_only_for_missing_positions():
-    _, gt, _, plan_t, _, streamed, _ = _trees(4, False, False)
+    _, gt, _, plan_t, _, streamed, _ = _trees(4, False, 2048)
     asked = []
     rows_for = ts.reopen_rows(gt, plan_t)
 
@@ -261,7 +265,7 @@ def test_lde_coefficients_unpadded_matches_jax_and_the_padded_form():
         trace, rand, jnt.make_pack(H, omicron, True, np),
         jnt.scale_table(jf.GENERATOR, H + R, np), np,
     )
-    pack = nt.make_pack(H, omicron, True)
+    pack = kn.make_kernel_plan(H, omicron, True)
     scale = nt.scale_table(jf.GENERATOR, H + R)
     got = nt.lde_coefficients_unpadded(
         u64_to_tensor(trace), u64_to_tensor(rand), pack, scale
@@ -276,19 +280,22 @@ def test_lde_coefficients_unpadded_matches_jax_and_the_padded_form():
 
 
 def test_stream_plan_root_and_sizes():
-    # S = 2^14: the kernel plan is the composed four-step transform
-    N, B = 1 << 16, 4
-    omega = jf.primitive_nth_root(N)
-    for kernel_ntt in (False, True):
-        plan = ts.make_stream_plan(N, B, omega, "cpu", kernel_ntt=kernel_ntt)
+    # S = 2^13: one sub-transform of SUB_MAX points; S = 2^14: the composed
+    # four-step transform; both against the JAX package's network
+    B = 4
+    for N in (1 << 15, 1 << 16):
+        omega = jf.primitive_nth_root(N)
+        plan = ts.make_stream_plan(N, B, omega, "cpu")
         assert (plan["N"], plan["B"], plan["S"]) == (N, B, N // B)
-        if kernel_ntt:
-            assert (plan["pack_S"].r, plan["pack_S"].c) == (128, 128)
-        x = u64_to_tensor(
-            np.random.default_rng(1).integers(0, jf.P, (2, N // B),
-                                              dtype=np.uint64))
-        want = nt.ntt(x, jf.h_pow(omega, B))
-        assert torch.equal(kn.forward_ntt(x, plan["pack_S"]), want)
+        pack_S = plan["pack_S"]
+        assert pack_S.n == N // B
+        assert (pack_S.r, pack_S.c) == ((128, 128) if N // B > kn.SUB_MAX
+                                        else (N // B, 1))
+        x = np.random.default_rng(1).integers(0, jf.P, (2, N // B),
+                                              dtype=np.uint64)
+        want = jnt.ntt(x, jf.h_pow(omega, B), np)
+        got = kn.ntt_kernel(u64_to_tensor(x), pack_S)
+        assert np.array_equal(tensor_to_u64(got), want)
 
 
 # -- classes grouped into one dispatch (`group_size_for`) -------------------
@@ -311,15 +318,19 @@ def test_group_size_for_at_the_prove_shapes():
         assert ts.group_size_for(B, S) == jstream.group_size_for(B, S) == G
 
 
-@pytest.mark.parametrize("kernel_ntt", [False, True], ids=["u64", "mxu"])
-@pytest.mark.parametrize("N,B,b0,G", [(2048, 8, 0, 8), (2048, 8, 2, 2),
-                                      (2048, 8, 4, 4), (2048, 8, 5, 3),
-                                      (1 << 16, 4, 0, 4)])
-def test_group_values_stack_the_class_values(N, B, b0, G, kernel_ntt):
+# each class group on both sides of SUB_MAX: S = 2^8 and 2^14 (B = 8), or
+# S = 2^14 and 2^13 (B = 4); from 2^14 up the class transform is the
+# composed four-step plan, below it one sub-transform
+@pytest.mark.parametrize("N,B,b0,G", [
+    (2048, 8, 0, 8), (2048, 8, 2, 2), (2048, 8, 4, 4), (2048, 8, 5, 3),
+    (1 << 16, 4, 0, 4),
+    (1 << 17, 8, 0, 8), (1 << 17, 8, 2, 2), (1 << 17, 8, 4, 4),
+    (1 << 17, 8, 5, 3), (1 << 15, 4, 0, 4),
+])
+def test_group_values_stack_the_class_values(N, B, b0, G):
     """G classes in one evaluation equal G evaluations of one class and
-    the classes of the full codeword; at N = 2^16 the class transform is
-    the composed four-step one on the kernel plan."""
-    _, gt, zipped, _, plan_t = _setup(N=N, B=B, kernel_ntt=kernel_ntt)
+    the classes of the full codeword."""
+    _, gt, zipped, _, plan_t = _setup(N=N, B=B)
     S = plan_t["S"]
     scale_len = max(int(g.shape[1]) for g in gt)
     wbs = ts._class_roots(plan_t, "cpu")
@@ -333,22 +344,21 @@ def test_group_values_stack_the_class_values(N, B, b0, G, kernel_ntt):
         assert np.array_equal(tensor_to_u64(got[j]).T, zipped[b0 + j :: B])
 
 
+# B = 8 and B = 16 classes: at 16 even G = 8 leaves two groups a pass, so
+# the accumulator combines groups at level log2(G)
 GROUP_CASES = [
-    pytest.param(G, salted, kernel_ntt,
-                 id=f"G{G}-{'salted' if salted else 'plain'}-"
-                    f"{'mxu' if kernel_ntt else 'u64'}")
-    for G in (1, 2, 4, 8) for salted in (False, True)
-    for kernel_ntt in (False, True)
+    pytest.param(G, salted, B,
+                 id=f"G{G}-{'salted' if salted else 'plain'}-B{B}")
+    for G in (1, 2, 4, 8) for salted in (False, True) for B in (8, 16)
 ]
 
 
-@pytest.mark.parametrize("G,salted,kernel_ntt", GROUP_CASES)
-def test_grouped_tree_matches_jax_ungrouped_and_resident(G, salted,
-                                                         kernel_ntt):
-    """plan["group"] = G in both packages (B = 8): roots, the level-log2(B)
+@pytest.mark.parametrize("G,salted,B", GROUP_CASES)
+def test_grouped_tree_matches_jax_ungrouped_and_resident(G, salted, B):
+    """plan["group"] = G in both packages: roots, the level-log2(B)
     digests, opened rows, salts and paths equal the JAX package's, the
     port's one class a dispatch and the resident tree's."""
-    gj, gt, zipped, plan_j, plan_t = _setup(B=8, kernel_ntt=kernel_ntt)
+    gj, gt, zipped, plan_j, plan_t = _setup(B=B)
     resident = _resident(zipped, salted)
     key = KEY if salted else None
     plan_j["group"] = plan_t["group"] = G
@@ -399,7 +409,7 @@ def test_dispatches_per_group(G, salted, monkeypatch):
     _, gt, _, _, plan_t = _setup(B=B)
     plan_t["group"] = G
     calls = {"ntt": 0, "hash": 0}
-    ntt, hash_words = kn.forward_ntt, B2.blake2b_words
+    ntt, hash_words = kn.ntt_kernel, B2.blake2b_words
 
     def count_ntt(*a, **kw):
         calls["ntt"] += 1
@@ -409,7 +419,7 @@ def test_dispatches_per_group(G, salted, monkeypatch):
         calls["hash"] += 1
         return hash_words(*a, **kw)
 
-    monkeypatch.setattr(kn, "forward_ntt", count_ntt)
+    monkeypatch.setattr(kn, "ntt_kernel", count_ntt)
     monkeypatch.setattr(B2, "blake2b_words", count_hash)
     tree = ts.streamed_commit(gt, KEY if salted else None, plan_t)
     log_g = G.bit_length() - 1
