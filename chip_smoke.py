@@ -1844,14 +1844,19 @@ def class_transforms(B: int, G: int) -> int:
     return 4 * B // G + 2 * B
 
 
-def streamed_b1(resident_b1: int, B: int, G: int) -> int:
+def streamed_b1(resident_b1: int, B: int, G: int, cut: int) -> int:
     """B1 launches of a streamed prove, from the resident prove's of the
-    same claim. A commit pass hashes each group's salts, leaves and log2 G
-    pair levels, combines B/G - 1 times in the accumulator and runs a
-    ladder log2 B levels shorter than the resident tree's, which hashed its
-    salts and leaves once: (B/G)(3 + log2 G) - 3 - log2 B more a pass."""
+    same claim, whose trees prune `cut` levels. A commit pass hashes each
+    group's salts, leaves and log2 G pair levels, combines B/G - 1 times in
+    the accumulator and runs a ladder log2 B levels shorter than the
+    resident tree's, which hashed its salts and leaves once: (B/G)(3 +
+    log2 G) - 3 - log2 B more a pass. The openings of a streamed tree hash
+    its opened runs' salts, leaves and log2 B - 1 parent levels, those of a
+    resident tree (its salts kept) the leaves and cut - 1 parent levels:
+    1 + log2 B - cut more a tree."""
     log_g, log_b = G.bit_length() - 1, B.bit_length() - 1
-    return resident_b1 + 2 * ((B // G) * (3 + log_g) - 3 - log_b)
+    return resident_b1 + 2 * ((B // G) * (3 + log_g) - 3 - log_b
+                              + 1 + log_b - cut)
 
 
 def full_proves(src, smi):
@@ -2159,6 +2164,7 @@ def stream_launches():
     round (9). Returns the streamed prove's counts."""
     from stark_brainfuck_tpu_torch import VirtualMachine
     from stark_brainfuck_tpu_torch.protocol import stream
+    from stark_brainfuck_tpu_torch.protocol.device_merkle import default_cut
 
     src = counter_program(1 << STREAM_LOG2_CYCLES)
     trace = VirtualMachine.simulate(VirtualMachine.compile(src))
@@ -2191,8 +2197,9 @@ def stream_launches():
             check_f4(c, B, ("stream_launches", kind))
             assert (c["b2"], c["b3"]) == ntt_launches(
                 bfs, class_transforms(B, G), S), (B, G, c)
-            assert c["b1"] == streamed_b1(counts["resident"]["b1"], B, G), (
-                B, G, counts)
+            assert c["b1"] == streamed_b1(
+                counts["resident"]["b1"], B, G,
+                default_cut(m["fri_domain"])), (B, G, counts)
         emit("stream_launches", kind=kind, fri_domain=m["fri_domain"],
              classes=m["stream_classes"], block=m["stream_block"],
              group=m["stream_group"], ntt_path=m["ntt_path"],

@@ -8,8 +8,10 @@ The tree is built where the codewords live:
     `encode_leaf(row) [+ salt]`, so host `Merkle.verify` is unchanged;
   - parent levels are computed on the device down to `_HOST_CUT` nodes; the
     top of the tree (a few KB) is finished on the host with hashlib;
-  - levels below `cut` are not kept: openings recompute the bottom
-    2^cut-leaf subtrees on the host from the gathered leaf rows (+salts);
+  - levels below `cut` are not kept: openings hash the 2^cut-leaf runs of
+    the opened leaves again on the device, in the gather that fetches the
+    openings (`prefetch_trees`; the runs of trees of one leaf shape in one
+    set of launches);
   - only the root, the opened rows/salts and the sibling digests along
     opened paths cross to the host; `prefetch_trees` gathers a query set for
     several trees in one pass.
@@ -25,8 +27,9 @@ the leaves of its own block (salts drawn at its own leaf indices) and the
 levels of its own subtree, down to the level that has `_HOST_CUT` nodes in
 all; one all-gather joins that level, and every rank finishes the same top.
 An opening's rows, salts and siblings are gathered by the ranks that own
-them and joined in one all-gather (`prefetch_trees`), so every rank holds,
-and pushes, the same objects. The JAX package reaches the same sites
+them (a run lies in one rank's block, and that rank hashes it) and joined
+in one all-gather (`prefetch_trees`), so every rank holds, and pushes, the
+same objects. The JAX package reaches the same sites
 through `to_host` (a replicate-then-read of an array the compiler
 partitioned).
 
@@ -46,12 +49,12 @@ import torch
 from ..convert import tensor_to_u64, u64_to_tensor
 from ..ops import blake2b as B
 from ..ops import field as f
-from ..utils.metrics import span, transfer
+from ..utils.metrics import count_open_runs, span, transfer
 
 HASH_LEN = 64
 _HOST_CUT = 512  # finish the tree on host once a level fits in 32 KB
-# prune: don't keep digest levels below this (bottom subtrees are
-# recomputed host-side per opened leaf — 2^cut hashlib calls per query)
+# prune: don't keep digest levels below this (an opening hashes the
+# 2^cut-leaf run of its leaf again on the device)
 DEFAULT_CUT = 6
 
 
@@ -151,21 +154,111 @@ def salt_words_to_buffer(words) -> bytes:
     return tensor_to_u64(words).astype("<u8").tobytes()
 
 
-def _salt_bytes(words_row: np.ndarray) -> bytes:
-    return np.ascontiguousarray(words_row.astype("<u8")).tobytes()
+def run_levels(rows, salts, cut: int):
+    """The pruned levels of R whole 2^cut-leaf runs: (R·2^cut, k) rows (+
+    (R·2^cut, 3) salt words), run after run -> the digests of levels
+    0..cut-1 of every run, one level after the other in one
+    (R·(2^(cut+1) - 2), 8) tensor (`_stacked` finds a node in it). Runs
+    are 2^cut-aligned, so no parent pairs the leaves of two runs."""
+    d = leaf_digests(rows, salts)
+    levels = [d]
+    for _ in range(cut - 1):
+        d = B.merkle_parents(d)
+        levels.append(d)
+    return torch.cat(levels) if cut > 1 else d
 
 
-def _row_payload_bytes(row: np.ndarray, salt: Optional[bytes]) -> bytes:
-    """Host leaf payload: LE u64 row words (+ salt)."""
-    payload = np.ascontiguousarray(row.astype("<u8")).tobytes()
-    return payload + salt if salt is not None else payload
+def _stacked(lvl: int, cut: int, runs: int, slot, pos):
+    """Rows in `run_levels`' stack of `runs` runs of the level-`lvl` nodes
+    `pos` (int64 arrays), whose runs are at `slot` in the stack."""
+    width = 1 << (cut - lvl)
+    offset = runs * ((2 << cut) - (2 << (cut - lvl)))
+    return offset + slot * width + (pos & (width - 1))
+
+
+def _upload(arrays: List[np.ndarray], device) -> List[torch.Tensor]:
+    """Host int64 index arrays -> device tensors, in one copy."""
+    if not arrays:
+        return []
+    flat = transfer(torch.from_numpy(np.concatenate(arrays)), device)
+    return list(torch.split(flat, [len(a) for a in arrays]))
+
+
+_ROW, _SALT, _NODE = range(3)
+
+
+class _Piece:
+    """Device rows on their way into a tree's caches: the opened rows
+    (`_ROW`), their salt words (`_SALT`) or the digests of the level-`lvl`
+    nodes (`_NODE`) at the sorted global `positions`. Of a sharded tree,
+    `tensor` holds this rank's rows of them and `counts` how many each rank
+    holds; else all of them, and `counts` is None."""
+
+    __slots__ = ("tree", "kind", "lvl", "positions", "counts", "tensor")
+
+    def __init__(self, tree, kind, lvl, positions, counts, tensor=None):
+        self.tree = tree
+        self.kind = kind
+        self.lvl = lvl
+        self.positions = positions
+        self.counts = counts
+        self.tensor = tensor
+
+    def absorb(self, words: np.ndarray):
+        """Put the (len(positions), w) host u64 words in the tree's cache."""
+        tree = self.tree
+        if self.kind == _ROW:
+            tree._row_cache.update(zip(self.positions, words))
+            return
+        size = 24 if self.kind == _SALT else HASH_LEN
+        buf = words.astype("<u8").tobytes()
+        parts = (buf[m * size : (m + 1) * size]
+                 for m in range(len(self.positions)))
+        if self.kind == _SALT:
+            tree._salt_cache.update(zip(self.positions, parts))
+        else:
+            lvl = self.lvl
+            tree._node_cache.update(
+                ((lvl, s), d) for s, d in zip(self.positions, parts))
+
+
+def _fetch(pieces: List[_Piece]):
+    """Bring the pieces' device rows to the host in one concatenated copy
+    (those of sharded trees, all of one mesh: in one all-gather of what
+    each rank holds) and put them in their trees' caches."""
+    local = [p for p in pieces if p.counts is None]
+    shared = [p for p in pieces if p.counts is not None]
+    if local:
+        flat_h = tensor_to_u64(torch.cat([p.tensor.reshape(-1) for p in local]))
+        pos = 0
+        for p in local:
+            n = p.tensor.numel()
+            p.absorb(flat_h[pos : pos + n].reshape(p.tensor.shape))
+            pos += n
+    if shared:
+        mesh = shared[0].tree.mesh
+        # a rank's words: its part of every piece, one after the other
+        words = [sum(p.counts[r] * int(p.tensor.shape[1]) for p in shared)
+                 for r in range(mesh.world)]
+        flat = torch.cat([p.tensor.reshape(-1) for p in shared])
+        flat_h = tensor_to_u64(
+            mesh.all_gather(flat, counts=words, name="openings"))
+        starts = [sum(words[:r]) for r in range(mesh.world)]
+        for p in shared:
+            w = int(p.tensor.shape[1])
+            parts = []
+            for r in range(mesh.world):
+                parts.append(flat_h[starts[r] : starts[r] + p.counts[r] * w])
+                starts[r] += p.counts[r] * w
+            p.absorb(np.concatenate(parts).reshape(-1, w))
 
 
 class DeviceMerkle:
     """Plain Merkle tree with device-side hashing: root / open like
     merkle.Merkle, plus batched `prefetch` and row access for building the
     opened leaf objects. With cut > 0 the bottom `cut` digest levels are
-    pruned (recomputed host-side per opening).
+    pruned: an opening hashes the 2^cut-leaf run of its leaf again on the
+    device (`prefetch_trees`).
 
     With `mesh`, `rows` (and `salts`, `levels`) are the rank's block of a
     tree over world·n leaves: indices stay global, each rank gathers what it
@@ -182,6 +275,8 @@ class DeviceMerkle:
         assert n & (n - 1) == 0 and n > _HOST_CUT
         if cut is None:
             cut = 0 if levels is not None else default_cut(n)
+        # a run lies in one rank's block: the rank hashes it for openings
+        assert int(rows.shape[0]) >= 1 << cut, (rows.shape, cut)
         self.cut = cut
         self.num_leafs = n
         self.depth = (n - 1).bit_length()
@@ -223,123 +318,38 @@ class DeviceMerkle:
     # -- openings ------------------------------------------------------------
 
     def prefetch_plan(self, indices: Iterable[int]):
-        """Stage the device gathers a set of leaf openings needs: the
-        2^cut-aligned leaf-row runs, salts, and sibling digests on the kept
-        device levels. Returns (plan, device tensors, counts) for
-        `prefetch_trees` and `prefetch_absorb`; under a mesh the tensors
-        hold what this rank owns of each gather and `counts` how many rows
-        of it each rank owns (None without a mesh)."""
+        """What a set of leaf openings still needs: the opened leaves whose
+        rows (and salts) are not held, and at each level below the host top
+        the sorted path siblings not held. Returns (rows, sibs), sibs[lvl]
+        the level-`lvl` siblings."""
         idx = sorted({int(i) for i in indices})
-        cut = self.cut
-        run_len = 1 << cut
-        runs = sorted({i >> cut for i in idx if i not in self._row_cache})
-        want_rows = [q * run_len + j for q in runs for j in range(run_len)]
-        per_level: List[List[int]] = []
-        for j in range(len(self.levels)):
-            lvl = cut + j
-            sibs = sorted({(i >> lvl) ^ 1 for i in idx})
-            per_level.append(
-                [s for s in sibs if (lvl, s) not in self._node_cache]
-            )
+        rows = [i for i in idx if i not in self._row_cache]
+        return rows, self._siblings(idx, self.cut + len(self.levels))
 
-        gathered, counts = [], []
+    def _siblings(self, idx, levels: int) -> List[List[int]]:
+        """The sorted siblings not held of the leaves `idx`' paths, at each
+        level below `levels`."""
+        sibs = []
+        for lvl in range(levels):
+            want = sorted({(i >> lvl) ^ 1 for i in idx})
+            sibs.append([s for s in want if (lvl, s) not in self._node_cache])
+        return sibs
 
-        def gather(source, positions, lvl):
-            """Rows `positions` (global, sorted) of a level-`lvl` array."""
-            first, own = self.first >> lvl, int(source.shape[0])
-            mine = [p - first for p in positions if 0 <= p - first < own]
-            lidx = transfer(torch.tensor(mine, dtype=torch.int64),
-                            source.device)
-            gathered.append(source.index_select(0, lidx))
-            if self.mesh is not None:
-                per_rank = [0] * self.mesh.world
-                for p in positions:
-                    per_rank[p // own] += 1
-                counts.append(per_rank)
-
-        if want_rows:
-            gather(self.rows, want_rows, 0)
-            if self.salt_words is not None:
-                gather(self.salt_words, want_rows, 0)
-        for j, sibs in enumerate(per_level):
-            if sibs:
-                gather(self.levels[j], sibs, cut + j)
-        return (want_rows, per_level), gathered, (
-            counts if self.mesh is not None else None)
-
-    def prefetch_absorb(self, plan, host):
-        want_rows, per_level = plan
-        pos = 0
-        if want_rows:
-            rows_h = host[pos]
-            pos += 1
-            salts_h = None
-            if self.salt_words is not None:
-                salts_h = host[pos]
-                pos += 1
-            for j, i in enumerate(want_rows):
-                self._row_cache[i] = rows_h[j]
-                if salts_h is not None:
-                    self._salt_cache[i] = _salt_bytes(salts_h[j])
-            if self.cut > 0:
-                self._rebuild_bottom(want_rows)
-        for j, sibs in enumerate(per_level):
-            if not sibs:
-                continue
-            d = host[pos].astype("<u8").tobytes()
-            pos += 1
-            for m, s in enumerate(sibs):
-                self._node_cache[(self.cut + j, s)] = (
-                    d[m * HASH_LEN : (m + 1) * HASH_LEN]
-                )
-
-    def _rebuild_bottom(self, leaf_indices):
-        """Recompute the pruned bottom-subtree digests (levels < cut) for
-        every complete 2^cut-aligned run in `leaf_indices` (host hashlib)."""
-        run_len = 1 << self.cut
-        runs = sorted({i >> self.cut for i in leaf_indices})
-        for q in runs:
-            digs = []
-            for j in range(run_len):
-                i = q * run_len + j
-                if i not in self._row_cache:
-                    digs = None
-                    break
-                salt = self._salt_cache.get(i) if self.salted else None
-                payload = _row_payload_bytes(self._row_cache[i], salt)
-                digs.append(blake2b(payload).digest())
-            if digs is None:
-                continue
-            pos0 = q * run_len
-            for lvl in range(self.cut):
-                width = run_len >> lvl
-                base = pos0 >> lvl
-                for m in range(width):
-                    self._node_cache.setdefault((lvl, base + m), digs[m])
-                digs = [
-                    blake2b(digs[2 * m] + digs[2 * m + 1]).digest()
-                    for m in range(width // 2)
-                ]
+    def _owned(self, positions, lvl: int):
+        """(local rows, counts): this rank's rows, in its level-`lvl` block,
+        of the sorted global level-`lvl` `positions`, and how many of them
+        each rank holds (None without a mesh)."""
+        pos = np.asarray(positions, dtype=np.int64)
+        if self.mesh is None:
+            return pos, None
+        own = int(self.rows.shape[0]) >> lvl
+        first = self.first >> lvl
+        counts = np.bincount(pos // own, minlength=self.mesh.world).tolist()
+        return pos[(pos >= first) & (pos < first + own)] - first, counts
 
     def prefetch(self, indices: Iterable[int]):
         """Gather everything the given leaf openings need in one pass."""
         prefetch_trees([(self, indices)])
-
-    def _device_node(self, lvl: int, pos: int) -> bytes:
-        key = (lvl, pos)
-        if key not in self._node_cache:
-            if lvl < self.cut:
-                # pruned level: fetch the covering run and rebuild
-                self.prefetch([pos << lvl])
-            elif self.mesh is not None:
-                # the node is the level-lvl sibling on its sibling's path
-                self.prefetch([(pos ^ 1) << lvl])
-            else:
-                j = lvl - self.cut
-                self._node_cache[key] = B.digests_to_bytes(
-                    self.levels[j][pos : pos + 1]
-                )
-        return self._node_cache[key]
 
     def row_at(self, index: int) -> np.ndarray:
         if index not in self._row_cache:
@@ -347,10 +357,11 @@ class DeviceMerkle:
         return self._row_cache[index]
 
     def _path(self, index: int) -> List[bytes]:
-        path = []
         ndev = self.cut + len(self.levels)
-        for lvl in range(ndev):
-            path.append(self._device_node(lvl, (index >> lvl) ^ 1))
+        keys = [(lvl, (index >> lvl) ^ 1) for lvl in range(ndev)]
+        if any(k not in self._node_cache for k in keys):
+            self.prefetch([index])
+        path = [self._node_cache[k] for k in keys]
         # host top: heap over the `cut` digest leaves; a row with c nodes
         # occupies heap[c : 2c), so node(count c, pos q) = heap[c + q]
         for lvl in range(ndev, self.depth):
@@ -368,51 +379,120 @@ class DeviceMerkle:
         return self._path(index)
 
 
+class _RunGroup:
+    """The pruned runs that trees of one leaf shape (width, salting, cut,
+    device) need hashed for a batch of openings: hashed in one set of
+    launches, their siblings read in one gather."""
+
+    def __init__(self, cut: int):
+        self.cut = cut
+        self.members = []  # (tree, local runs, pruned sibs by level)
+        self.runs = 0
+
+    def add(self, tree, local_runs, pruned):
+        self.members.append((tree, local_runs, pruned))
+        self.runs += len(local_runs)
+
+    def plan(self, arrays: List[np.ndarray]) -> List[_Piece]:
+        """Append the index arrays this group uploads (each member's run
+        rows, then the siblings' rows in the stack) and return the sibling
+        pieces, in the order of the stack's gather."""
+        cut, span_ = self.cut, np.arange(1 << self.cut, dtype=np.int64)
+        for _, local_runs, _ in self.members:
+            arrays.append(((local_runs[:, None] << cut) + span_).reshape(-1))
+        pieces, rows, slot0 = [], [], 0
+        for tree, local_runs, pruned in self.members:
+            for lvl, sibs in enumerate(pruned):
+                if sibs:
+                    mine, counts = tree._owned(sibs, lvl)
+                    slot = slot0 + np.searchsorted(local_runs,
+                                                   mine >> (cut - lvl))
+                    rows.append(_stacked(lvl, cut, self.runs, slot, mine))
+                    pieces.append(_Piece(tree, _NODE, lvl, sibs, counts))
+            slot0 += len(local_runs)
+        arrays.append(np.concatenate(rows))
+        return pieces
+
+    def gather(self, uploaded: List[torch.Tensor], pieces: List[_Piece]):
+        """Hash the runs (the members' rows gathered at `uploaded`' run
+        rows) and fill the pieces from the stack at the last array's
+        rows."""
+        trees = [m[0] for m in self.members]
+        run_rows, sib_rows = uploaded[:-1], uploaded[-1]
+        tree = trees[0]
+        if self.runs:
+            rows = torch.cat([t.rows.index_select(0, r)
+                              for t, r in zip(trees, run_rows)])
+            salts = None
+            if tree.salt_words is not None:
+                salts = torch.cat([t.salt_words.index_select(0, r)
+                                   for t, r in zip(trees, run_rows)])
+            stack = run_levels(rows, salts, self.cut)
+            count_open_runs(self.runs)
+        else:
+            stack = tree.levels[0].new_empty((0, 8))
+        got = stack.index_select(0, sib_rows)
+        sizes = [len(p.positions) if p.counts is None
+                 else p.counts[p.tree.mesh.rank] for p in pieces]
+        for p, t in zip(pieces, torch.split(got, sizes)):
+            p.tensor = t
+
+
 def prefetch_trees(pairs):
-    """Batched opening prefetch across several trees: stage every tree's
-    gathers, then bring them all to the host in one concatenated copy. The
-    gathers of sharded trees (all of one mesh) are first joined across the
-    ranks, in one all-gather of what each rank owns."""
-    plans = []
-    local: List = []  # (slot, tensor)
-    shared: List = []  # (slot, tensor, rows of it per rank)
-    mesh = None
+    """Batched opening prefetch across several trees: every tree's opened
+    rows (+ salts) and path siblings, gathered on the device and brought to
+    the host in one concatenated copy. The siblings below a tree's `cut`
+    come from its 2^cut-leaf runs hashed again with B1, those of trees of
+    one leaf shape in one set of launches. The index arrays go up in one
+    copy too. Of sharded trees (all of one mesh) each rank gathers and
+    hashes what its block holds, and one all-gather joins it."""
+    arrays: List[np.ndarray] = []
+    selects = []  # (source, its index array's slot, piece)
+    groups: Dict[tuple, _RunGroup] = {}
+    device = None
+
+    def select(source, tree, kind, lvl, positions):
+        mine, counts = tree._owned(positions, lvl)
+        selects.append((source, len(arrays),
+                        _Piece(tree, kind, lvl, positions, counts)))
+        arrays.append(mine)
+
     for tree, indices in pairs:
-        plan, dev, counts = tree.prefetch_plan(indices)
-        first = len(local) + len(shared)
-        plans.append((tree, plan, first, len(dev)))
-        for j, t in enumerate(dev):
-            if counts is None:
-                local.append((first + j, t))
-            else:
-                mesh = tree.mesh
-                shared.append((first + j, t, counts[j]))
-    host = [None] * (len(local) + len(shared))
-    if local:
-        flat_h = tensor_to_u64(torch.cat([t.reshape(-1) for _, t in local]))
-        pos = 0
-        for slot, t in local:
-            host[slot] = flat_h[pos : pos + t.numel()].reshape(t.shape)
-            pos += t.numel()
-    if shared:
-        # a rank's words: its part of every gather, one after the other
-        words = [
-            sum(c[r] * int(t.shape[1]) for _, t, c in shared)
-            for r in range(mesh.world)
-        ]
-        flat = torch.cat([t.reshape(-1) for _, t, _ in shared])
-        flat_h = tensor_to_u64(
-            mesh.all_gather(flat, counts=words, name="openings"))
-        starts = [sum(words[:r]) for r in range(mesh.world)]
-        for slot, t, c in shared:
-            w = int(t.shape[1])
-            parts = []
-            for r in range(mesh.world):
-                parts.append(flat_h[starts[r] : starts[r] + c[r] * w])
-                starts[r] += c[r] * w
-            host[slot] = np.concatenate(parts).reshape(-1, w)
-    for tree, plan, first, count in plans:
-        tree.prefetch_absorb(plan, host[first : first + count])
+        rows, sibs = tree.prefetch_plan(indices)
+        cut = tree.cut
+        if rows:
+            select(tree.rows, tree, _ROW, 0, rows)
+            if tree.salt_words is not None:
+                select(tree.salt_words, tree, _SALT, 0, rows)
+        for j, level in enumerate(tree.levels):
+            if sibs[cut + j]:
+                select(level, tree, _NODE, cut + j, sibs[cut + j])
+        pruned = sibs[:cut]
+        if any(pruned):
+            runs = sorted({s >> (cut - lvl)
+                           for lvl, level in enumerate(pruned)
+                           for s in level})
+            key = (int(tree.rows.shape[1]), tree.salt_words is not None, cut,
+                   tree.rows.device)
+            groups.setdefault(key, _RunGroup(cut)).add(
+                tree, tree._owned(runs, cut)[0], pruned)
+        if rows or any(sibs):
+            assert device in (None, tree.levels[0].device)
+            device = tree.levels[0].device
+    plans = []
+    for group in groups.values():
+        first = len(arrays)
+        plans.append((group, first, group.plan(arrays)))
+    uploaded = _upload(arrays, device)
+    pieces = []
+    for source, slot, piece in selects:
+        piece.tensor = source.index_select(0, uploaded[slot])
+        pieces.append(piece)
+    for group, first, group_pieces in plans:
+        group.gather(uploaded[first : first + len(group.members) + 1],
+                     group_pieces)
+        pieces.extend(group_pieces)
+    _fetch(pieces)
 
 
 class DeviceSaltedMerkle(DeviceMerkle):

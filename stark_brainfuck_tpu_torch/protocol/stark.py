@@ -1309,8 +1309,8 @@ class BrainfuckStark:
                 }
             )
             if use_stream:
-                # second streaming pass: evaluate the classes again and
-                # gather the opened positions
+                # second streaming pass: evaluate the classes again, gather
+                # the opened positions and hash their runs on the device
                 with span("base"):
                     base_tree.resolve(open_idx,
                                       reopen_rows(base_groups, splan))
@@ -1418,7 +1418,9 @@ class BrainfuckStark:
                 ("twiddle_outer_launches", "b3"),
                 ("gl_elementwise_launches", "f1"),
                 ("xf_elementwise_launches", "f2"),
-                ("acc_group_launches", "f3"), ("quotient_launches", "f4"))},
+                ("acc_group_launches", "f3"), ("quotient_launches", "f4"),
+                # the 2^cut-leaf runs that openings hashed on the device
+                ("open_runs", "open_runs"))},
         )
         return proof
 

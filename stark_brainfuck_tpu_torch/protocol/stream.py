@@ -26,8 +26,8 @@ pending (S, 8) digest arrays) yields the level-log2(B) digests: the
 natural-order node array whose entry q covers leaves [q·B, (q+1)·B). The
 upper tree is an ordinary ladder; levels below log2(B) are never stored.
 Openings re-evaluate the classes (a second streaming pass), gather the
-opened positions, and rebuild the pruned bottom subtrees on the host,
-bit-identical to the resident tree's transcript.
+opened positions and hash their runs of B leaves again on the device,
+bit-identical to the resident tree's transcript (`StreamedMerkle.resolve`).
 
 Classes go G at a time (`group_size_for`, the JAX package's rule): the G
 classes' scale rows in one doubling, one fold and one batched size-S
@@ -53,27 +53,32 @@ words, not lo/hi u32 planes.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..convert import tensor_to_u64
+from ..convert import u64_to_tensor
 from ..ops import blake2b as B2
 from ..ops import field as f
 from ..ops import kernel_ntt as kn
 from ..ops import ntt as nt
-from ..utils.metrics import span, transfer
+from ..utils.metrics import count_open_runs, span, transfer
 from .device_merkle import (
     _HOST_CUT,
+    _NODE,
+    _ROW,
+    _SALT,
     DeviceMerkle,
-    _salt_bytes,
+    _fetch,
+    _Piece,
+    _stacked,
+    _upload,
     leaf_digests,
+    run_levels,
     salt_key_words,
     salt_words_device,
 )
-
-U64 = np.uint64
 
 
 def fold_mod(coeffs, S: int):
@@ -183,30 +188,52 @@ class StreamedMerkle(DeviceMerkle):
 
     def resolve(self, indices, rows_for_positions):
         """Make `indices` openable. `rows_for_positions(positions)` is the
-        prover's second streaming pass: it returns a host u64 array of shape
-        (len(positions), B, k) whose entry [j, b] is the zipped leaf row of
-        index positions[j]·B + b. Rebuilds the pruned bottom subtrees from
-        those rows (and recomputed salts) on the host."""
-        B = self.num_classes
-        positions = sorted(
-            {int(i) >> self.cut for i in indices
-             if int(i) not in self._row_cache}
-        )
-        if not positions:
+        prover's second streaming pass: it returns the (len(positions), B,
+        k) rows, a device tensor (or a host u64 array), whose entry [j, b]
+        is the zipped leaf row of index positions[j]·B + b. The runs of B
+        leaves are hashed on the device with their salts, and the opened
+        rows, their salts and their path siblings below level log2(B) come
+        to the host in one copy."""
+        B, cut = self.num_classes, self.cut
+        idx = sorted({int(i) for i in indices} - self._row_cache.keys())
+        if not idx:
             return
-        rows = np.asarray(rows_for_positions(positions), dtype=U64)
-        assert rows.shape[:2] == (len(positions), B)
-        leaf_idx = []
-        for j, q in enumerate(positions):
-            for b in range(B):
-                i = q * B + b
-                self._row_cache[i] = rows[j, b]
-                leaf_idx.append(i)
+        positions = sorted({i >> cut for i in idx})
+        dev = self.levels[0].device
+        rows = rows_for_positions(positions)
+        if not torch.is_tensor(rows):
+            rows = u64_to_tensor(rows, dev)
+        Q = len(positions)
+        assert tuple(rows.shape[:2]) == (Q, B), rows.shape
+        pos = np.asarray(positions, dtype=np.int64)
+        opened = np.asarray(idx, dtype=np.int64)
+        # row j·B + b of the runs is leaf positions[j]·B + b
+        arrays = [np.searchsorted(pos, opened >> cut) * B + (opened & (B - 1))]
+        sibs = self._siblings(idx, cut)
+        for lvl, at in enumerate(sibs):
+            at = np.asarray(at, dtype=np.int64)
+            arrays.append(_stacked(lvl, cut, Q, np.searchsorted(
+                pos, at >> (cut - lvl)), at))
         if self.salt_key is not None:
-            words = salt_words_host(self.salt_key, leaf_idx)
-            for j, i in enumerate(leaf_idx):
-                self._salt_cache[i] = _salt_bytes(words[j])
-        self._rebuild_bottom(leaf_idx)
+            arrays.append(salt_key_words(self.salt_key).numpy())
+            arrays.append(((pos[:, None] * B) + np.arange(B)).reshape(-1))
+        uploaded = _upload(arrays, dev)
+        rows = rows.reshape(Q * B, -1)
+        salts = None
+        if self.salt_key is not None:
+            salts = salt_words_device(uploaded[-2], Q * B,
+                                      indices=uploaded[-1])
+        stack = run_levels(rows, salts, cut)
+        count_open_runs(Q)
+        pieces = [_Piece(self, _ROW, 0, idx, None,
+                         rows.index_select(0, uploaded[0]))]
+        if salts is not None:
+            pieces.append(_Piece(self, _SALT, 0, idx, None,
+                                 salts.index_select(0, uploaded[0])))
+        for lvl in range(cut):
+            pieces.append(_Piece(self, _NODE, lvl, sibs[lvl], None,
+                                 stack.index_select(0, uploaded[1 + lvl])))
+        _fetch(pieces)
 
     def prefetch_plan(self, indices):
         idx = sorted({int(i) for i in indices})
@@ -216,18 +243,7 @@ class StreamedMerkle(DeviceMerkle):
                 "streamed tree: call resolve() before opening "
                 f"(unresolved indices {missing[:4]}...)"
             )
-        per_level: List[List[int]] = []
-        gathered = []
-        for j, level in enumerate(self.levels):
-            lvl = self.cut + j
-            sibs = sorted({(i >> lvl) ^ 1 for i in idx})
-            sibs = [s for s in sibs if (lvl, s) not in self._node_cache]
-            per_level.append(sibs)
-            if sibs:
-                lidx = transfer(torch.tensor(sibs, dtype=torch.int64),
-                                level.device)
-                gathered.append(level.index_select(0, lidx))
-        return ([], per_level), gathered, None
+        return super().prefetch_plan(idx)
 
 
 class StreamedSaltedMerkle(StreamedMerkle):
@@ -237,19 +253,12 @@ class StreamedSaltedMerkle(StreamedMerkle):
         super().__init__(n, num_classes, top_digests, salt_key=salt_key)
 
     def salt_at(self, index: int) -> bytes:
+        if index not in self._salt_cache:
+            self.prefetch([index])  # raises: not resolved
         return self._salt_cache[index]
 
     def open(self, index: int):
         return self.salt_at(index), self._path(index)
-
-
-def salt_words_host(seed_bytes: bytes, indices) -> np.ndarray:
-    """(len(indices), 3) u64 salt words at explicit leaf indices, on the
-    host (the plain torch BLAKE2b): the few leaves `resolve` opens."""
-    idx = torch.as_tensor(np.asarray(indices, dtype=np.int64))
-    return tensor_to_u64(
-        salt_words_device(salt_key_words(seed_bytes), len(idx), indices=idx)
-    )
 
 
 def group_size_for(B: int, S: int, group_env: Optional[int] = None) -> int:
@@ -318,9 +327,9 @@ def streamed_commit(groups, salt_key: Optional[bytes], plan):
 
 def reopen_rows(groups, plan):
     """Second streaming pass factory: returns rows_for_positions(positions)
-    for `StreamedMerkle.resolve`. It re-evaluates the classes G at a time,
-    gathers only the requested positions, and brings them to the host in
-    one copy."""
+    for `StreamedMerkle.resolve`. It re-evaluates the classes G at a time
+    and gathers only the requested positions: the (Q, B, k) rows, left on
+    the device for `resolve` to hash."""
     B, S = plan["B"], plan["S"]
     dev = groups[0].device
     scale_len = max(int(g.shape[1]) for g in groups)
@@ -335,7 +344,7 @@ def reopen_rows(groups, plan):
                                 plan["pack_S"], S)
             pieces.append(vals.index_select(2, pos).permute(2, 0, 1))
             del vals
-        return tensor_to_u64(torch.cat(pieces, dim=1))  # (Q, B, k)
+        return torch.cat(pieces, dim=1)  # (Q, B, k), on the device
 
     return rows_for_positions
 

@@ -28,7 +28,9 @@ and its prologue `f4_prologue`, F5 `f5`) and the host's blocking points:
 device synchronises (`sync`), reads from a CUDA device (`d2h`) and uploads
 to one (`h2d`), each with its calls, bytes (`*_bytes`) and the host
 nanoseconds spent inside it (`*_ns`). Every transfer of the prove path
-goes through `transfer`, every synchronise through `device_sync`.
+goes through `transfer`, every synchronise through `device_sync`. And the
+program's tallies: `open_runs`, the 2^cut-leaf runs of Merkle trees that
+openings hash again on the device (`count_open_runs`).
 
 The last `HISTORY_LEN` records of the process are kept; `history()` reads
 them.
@@ -50,10 +52,12 @@ LAUNCH_COUNTERS = ("b1", "b2", "b3", "f1", "f2", "f3", "f3_powers", "f4",
                    "f4_prologue", "f5")
 BLOCKING_COUNTERS = ("sync", "sync_ns", "d2h", "d2h_bytes", "d2h_ns", "h2d",
                      "h2d_bytes", "h2d_ns")
-COUNTERS = LAUNCH_COUNTERS + BLOCKING_COUNTERS
+TALLY_COUNTERS = ("open_runs",)
+COUNTERS = LAUNCH_COUNTERS + BLOCKING_COUNTERS + TALLY_COUNTERS
 _SYNC, _D2H, _H2D = 0, 2, 5  # offsets of each kind's calls in _BLOCKING
 
 _BLOCKING = [0] * len(BLOCKING_COUNTERS)
+_TALLIES = [0] * len(TALLY_COUNTERS)
 _HISTORY: "collections.deque[ProveRecord]" = collections.deque(
     maxlen=HISTORY_LEN)
 _prove_ids = itertools.count(1)
@@ -78,8 +82,13 @@ def counters() -> tuple:
                     fk.LAUNCHES_ELEMENTWISE, fk.LAUNCHES_XFIELD,
                     fk.LAUNCHES_ACC, fk.LAUNCHES_ACC_POWERS,
                     qk.LAUNCHES_QUOTIENT, qk.LAUNCHES_QUOTIENT_PROLOGUE,
-                    fr.LAUNCHES_FOLD, *_BLOCKING)
+                    fr.LAUNCHES_FOLD, *_BLOCKING, *_TALLIES)
     return _snapshot()
+
+
+def count_open_runs(runs: int):
+    """`runs` more 2^cut-leaf runs hashed on the device for openings."""
+    _TALLIES[0] += runs
 
 
 def _count(kind: int, nbytes: int, t0: int):

@@ -3,7 +3,8 @@ on seeded CPU proves of a small program, resident and streamed: the proof
 bytes stay the JAX package's; each prove adds one record with its seed and a
 fresh id; the top-level spans are `stages_s`; children nest in their
 parents; the launch counters' deltas add up to the record's totals and to
-`last_metrics`' launch keys; `fri_round_s` has one entry a fold round; each
+`last_metrics`' launch keys; `open_runs` counts the runs that openings
+hash; `fri_round_s` has one entry a fold round; each
 span is a profiler range only under the profiler; the benchmark's
 readers of spans and stage times read these proves; and the counted
 transfer helper counts CUDA tensors only."""
@@ -231,6 +232,25 @@ def test_launch_counters_add_up(mode):
                          ("acc_group_launches", "f3"),
                          ("quotient_launches", "f4")):
         assert p.metrics[key] == totals.get(counter, 0), key
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_open_runs_counts_the_runs_the_openings_hash(mode):
+    """`open_runs`: the runs hashed again on the device for openings, in
+    last_metrics, in the record's totals and in the spans that open trees;
+    no reader's sum of launches or blocking points holds it."""
+    p = _proved(mode)
+    totals = p.record.totals()
+    assert p.metrics["open_runs"] == totals["open_runs"] > 0
+    assert "open_runs" not in M.LAUNCH_COUNTERS + M.BLOCKING_COUNTERS
+    paths = _by_path(p.record)
+    where = (["prove/reopen (streamed 2nd pass)/base",
+              "prove/reopen (streamed 2nd pass)/ext"]
+             if mode == "streamed" else [])
+    for path in where + ["prove/fri.prove/open/prefetch",
+                         "prove/fri.prove/fri/query"]:
+        span, = paths[path]
+        assert span.counts.get("open_runs", 0) > 0, path
 
 
 @pytest.mark.parametrize("mode", list(MODES))

@@ -4,6 +4,8 @@ resident device trees: folds, class values, roots, openings, rows, salts,
 at every group size of classes a dispatch. Inputs come from a numpy seed;
 every comparison is exact (integers)."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from stark_brainfuck_tpu_torch.convert import (
 from stark_brainfuck_tpu_torch.ops import blake2b as B2
 from stark_brainfuck_tpu_torch.ops import kernel_ntt as kn
 from stark_brainfuck_tpu_torch.ops import ntt as nt
+from stark_brainfuck_tpu_torch.protocol import device_merkle
 from stark_brainfuck_tpu_torch.protocol import stream as ts
 from stark_brainfuck_tpu_torch.protocol.device_merkle import (
     DeviceMerkle,
@@ -29,6 +32,7 @@ from stark_brainfuck_tpu_torch.protocol.device_merkle import (
     salt_key_words,
     salt_words_device,
 )
+from stark_brainfuck_tpu_torch.utils import metrics as M
 
 torch.set_num_threads(1)
 
@@ -161,10 +165,46 @@ def test_open_before_resolve_raises(salted):
         streamed.row_at(7)
     streamed.resolve([7], ts.reopen_rows(gt, plan_t))
     streamed.open(7)
-    # index 7 resolved the whole run of B leaves it lies in, no other
-    streamed.open(4)
+    # index 7 resolved itself, not the rest of its run of B leaves
+    with pytest.raises(RuntimeError, match="resolve"):
+        streamed.open(4)
     with pytest.raises(RuntimeError, match="resolve"):
         streamed.prefetch([8])
+
+
+@pytest.mark.parametrize("salted", [False, True], ids=["plain", "salted"])
+def test_32_classes_open_like_the_resident_tree(salted, monkeypatch):
+    """B = 32 over 2^14 leaves (512 positions): a few hundred positions
+    opened at once, as 160 STARK indices and their neighbours open them.
+    Each position's run of 32 leaves is hashed once (`open_runs`), no
+    hashlib is called, and the paths, rows and salts equal the resident
+    tree's."""
+    N, B = 1 << 14, 32
+    _, gt, zipped, _, plan_t = _setup(N=N, B=B)
+    resident = _resident(zipped, salted)
+    streamed = ts.streamed_commit(gt, KEY if salted else None, plan_t)
+    assert streamed.root() == resident.root()
+    picks = np.random.default_rng(23).integers(0, N, 160)
+    idx = sorted({int(i + d) % N for i in picks for d in (0, 1, N // 8)})
+    positions = {i // B for i in idx}
+    assert len(positions) > 200
+
+    def refuse(*a, **kw):
+        raise AssertionError("hashlib called while opening")
+
+    monkeypatch.setattr(device_merkle, "blake2b", refuse)
+    monkeypatch.setattr(hashlib, "blake2b", refuse)
+    runs = M.COUNTERS.index("open_runs")
+    before = M.counters()[runs]
+    streamed.resolve(idx, ts.reopen_rows(gt, plan_t))
+    assert M.counters()[runs] - before == len(positions)
+    assert sorted(streamed._row_cache) == idx
+    for tree in (streamed, resident):
+        tree.prefetch(idx)
+    for i in idx:
+        assert streamed.open(i) == resident.open(i)
+        assert np.array_equal(streamed.row_at(i), resident.row_at(i))
+        assert np.array_equal(streamed.row_at(i), zipped[i])
 
 
 def test_resolve_asks_only_for_missing_positions():
@@ -179,7 +219,8 @@ def test_resolve_asks_only_for_missing_positions():
     streamed.resolve([0, 1, 9], spy)
     streamed.resolve([2, 9, 400], spy)
     streamed.resolve([3], spy)
-    assert asked == [[0, 2], [100]]
+    streamed.resolve([0, 1, 2, 3, 9, 400], spy)
+    assert asked == [[0, 2], [0, 100], [0]]
 
 
 def test_accumulator_takes_reduced_groups_at_their_level():
@@ -241,7 +282,6 @@ def test_salts_at_explicit_indices_match_jax(start):
     assert np.array_equal(
         tensor_to_u64(got), lo_hi[:, :, 0] | (lo_hi[:, :, 1] << np.uint64(32))
     )
-    assert np.array_equal(ts.salt_words_host(KEY, idx), tensor_to_u64(got))
     if start == 0:
         whole = salt_words_device(salt_key_words(KEY), 40)
         assert torch.equal(got, whole[torch.from_numpy(idx)])
@@ -391,7 +431,7 @@ def test_reopen_rows_match_jax_at_every_group(G):
     gj, gt, zipped, plan_j, plan_t = _setup(B=8)
     plan_j["group"] = plan_t["group"] = G
     positions = [0, 3, 17, 255]
-    got = ts.reopen_rows(gt, plan_t)(positions)
+    got = tensor_to_u64(ts.reopen_rows(gt, plan_t)(positions))
     want = jstream.reopen_rows(gj, plan_j, np)(positions)
     assert got.shape == (4, 8, zipped.shape[1])
     assert np.array_equal(got, want)
